@@ -1,0 +1,34 @@
+from ray_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+from ray_tpu_torch.models.gpt import (
+    GPTConfig,
+    forward,
+    init_params,
+    loss_fn,
+    num_params,
+    train_flops_per_token,
+)
+from ray_tpu_torch.models.training import (
+    AdamW,
+    TrainState,
+    create_train_state,
+    default_optimizer,
+    make_train_step,
+    shard_batch,
+)
+
+__all__ = [
+    "AdamW",
+    "GPTConfig",
+    "TrainState",
+    "create_train_state",
+    "default_optimizer",
+    "forward",
+    "init_params",
+    "loss_fn",
+    "make_train_step",
+    "num_params",
+    "params_from_numpy",
+    "params_to_numpy",
+    "shard_batch",
+    "train_flops_per_token",
+]

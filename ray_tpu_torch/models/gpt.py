@@ -1,0 +1,304 @@
+"""GPT-2 family in PyTorch: the counterpart of ``ray_tpu/models/gpt.py``.
+
+Params are a plain dict of tensors with the JAX package's leaf names and
+shapes: per-layer params stacked on a leading ``(L, ...)`` dim under
+``"blocks"``, so ``models/convert.py`` carries a JAX pytree across unchanged.
+Activations and matmuls run in ``config.dtype`` (bf16 in training), params,
+layernorm and logits in f32. Attention is ``ops.flash_attention``: the CUDA
+kernels on the GPU, their plain versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from ray_tpu_torch._private.accelerators.gpu import resolve_device
+from ray_tpu_torch.models.stack import apply_stack, causal_lm_loss, resolve_attention
+
+_MOE_NOT_PORTED = "mixture-of-experts (moe_experts > 0) is not ported yet: ROADMAP.md Queue 1 item 4"
+
+
+@dataclasses.dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304  # 50257 padded up to a multiple of 128
+    n_layer: int = 12
+    n_head: int = 12
+    d_model: int = 768
+    d_ff: int = 0  # 0 -> 4 * d_model
+    max_seq_len: int = 1024
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    remat: bool = True
+    # None recomputes the whole block; "save_attn" checkpoints the qkv
+    # projection and the out-proj/MLP half but keeps attention out of the
+    # recompute, so the forward kernel runs once per layer per step and the
+    # backward reads the saved (q, k, v, o, lse); "dots" is not ported yet.
+    remat_policy: Optional[str] = "save_attn"
+    attention: str = "auto"  # auto | flash | xla
+    dropout: float = 0.0
+    moe_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+
+    @property
+    def ff_dim(self) -> int:
+        return self.d_ff or 4 * self.d_model
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.n_head == 0
+        return self.d_model // self.n_head
+
+    # ---- presets ----
+    @classmethod
+    def gpt2_small(cls, **kw):
+        return cls(n_layer=12, n_head=12, d_model=768, **kw)
+
+    @classmethod
+    def gpt2_medium(cls, **kw):
+        return cls(n_layer=24, n_head=16, d_model=1024, **kw)
+
+    @classmethod
+    def gpt2_large(cls, **kw):
+        return cls(n_layer=36, n_head=20, d_model=1280, **kw)
+
+    @classmethod
+    def gpt2_xl(cls, **kw):
+        return cls(n_layer=48, n_head=25, d_model=1600, **kw)
+
+    @classmethod
+    def nano(cls, **kw):
+        """Tiny config for CPU tests."""
+        kw.setdefault("vocab_size", 256)
+        kw.setdefault("max_seq_len", 128)
+        return cls(n_layer=2, n_head=2, d_model=64, **kw)
+
+
+def num_params(config: GPTConfig) -> int:
+    d, L, V, F_ = config.d_model, config.n_layer, config.vocab_size, config.ff_dim
+    E = config.moe_experts
+    if E:
+        mlp = d * E + E * (d * F_ + F_ + F_ * d + d)  # router + per-expert FFNs
+    else:
+        mlp = d * F_ + F_ + F_ * d + d
+    per_layer = (
+        3 * d * d + 3 * d  # qkv
+        + d * d + d        # attn out
+        + mlp
+        + 4 * d            # 2 layernorms
+    )
+    return V * d + config.max_seq_len * d + L * per_layer + 2 * d
+
+
+def train_flops_per_token(config: GPTConfig, seq_len: int) -> float:
+    """6*N matmul flops + attention term, the standard MFU accounting (the tied
+    wte counted once)."""
+    attn = 12 * config.n_layer * config.d_model * seq_len  # fwd+bwd qk+pv
+    return 6.0 * num_params(config) + attn
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A new 63-bit seed from (seed, data): the counterpart of ``fold_in``."""
+    return (seed * 0x9E3779B97F4A7C15 + data + 1) % (1 << 63)
+
+
+# --------------------------------------------------------------------------- init
+def init_params(config: GPTConfig, seed=0, device=None) -> Dict[str, Any]:
+    """Random GPT-2 params (normal(0.02), residual projections scaled by
+    1/sqrt(2L)) from ``seed`` (an int or a ``torch.Generator``), on ``device``
+    (``None``: the GPU; raises when there is none)."""
+    if config.moe_experts:
+        raise NotImplementedError(_MOE_NOT_PORTED)
+    device = resolve_device(device)
+    d, L, V, F_ = config.d_model, config.n_layer, config.vocab_size, config.ff_dim
+    nh, hd = config.n_head, config.head_dim
+    std = 0.02
+    proj_std = std / math.sqrt(2 * L)  # GPT-2 residual-scaled init
+    pd = config.param_dtype
+    if isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+
+    def norm(shape, s):
+        return (torch.randn(shape, generator=gen, device=gen.device) * s).to(device, pd)
+
+    def const(shape, value):
+        return torch.full(shape, value, dtype=pd, device=device)
+
+    blocks = {
+        "ln1_scale": const((L, d), 1.0),
+        "ln1_bias": const((L, d), 0.0),
+        "qkv_w": norm((L, d, 3, nh, hd), std),
+        "qkv_b": const((L, 3, nh, hd), 0.0),
+        "out_w": norm((L, nh, hd, d), proj_std),
+        "out_b": const((L, d), 0.0),
+        "ln2_scale": const((L, d), 1.0),
+        "ln2_bias": const((L, d), 0.0),
+        "fc_w": norm((L, d, F_), std),
+        "fc_b": const((L, F_), 0.0),
+        "proj_w": norm((L, F_, d), proj_std),
+        "proj_b": const((L, d), 0.0),
+    }
+    return {
+        "wte": norm((V, d), std),
+        "wpe": norm((config.max_seq_len, d), std),
+        "blocks": blocks,
+        "lnf_scale": const((d,), 1.0),
+        "lnf_bias": const((d,), 0.0),
+    }
+
+
+# --------------------------------------------------------------------------- forward
+def _layer_norm(x, scale, bias, eps=1e-5):
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
+def _dropout(x, rate: float, seed: Optional[int]):
+    """Inverted dropout with a mask drawn from a generator seeded by ``seed``,
+    so a checkpointed block redraws the same mask when it recomputes."""
+    if seed is None or rate <= 0.0:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0).to(x.dtype)
+
+
+class _HeadF32(torch.autograd.Function):
+    """``x @ w.T`` from operands in the compute dtype, summed and returned in
+    f32 (the JAX head's ``preferred_element_type=f32``): the logits are never
+    rounded to bf16. The backward rounds the f32 cotangent to the operands'
+    type, as the TPU's default-precision dot does with mixed operands."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.is_cuda:
+            return torch.mm(x, w.t(), out_dtype=torch.float32)
+        # aten::mm.dtype has no CPU kernel: the same products, taken in f32.
+        return torch.mm(x.float(), w.float().t())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w, g.t() @ x
+
+
+def _lm_head(x, w):
+    """Logits (..., V) in f32 from x (..., d) and the tied embedding w (V, d)."""
+    if x.dtype == torch.float32:
+        return x @ w.t()
+    return _HeadF32.apply(x.reshape(-1, x.shape[-1]), w).view(*x.shape[:-1], w.shape[0])
+
+
+def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=False):
+    """One transformer block. x: (B, S, D) in config.dtype.
+
+    With sub_remat ("save_attn"), the qkv projection and the out-proj/MLP half
+    are each checkpointed while the attention call between them is not: its
+    residuals are saved, so the backward never re-runs the forward kernel."""
+    cdt = config.dtype
+    B, S, D = x.shape
+    nh, hd = config.n_head, config.head_dim
+    s1 = s2 = None
+    if drop_seed is not None and config.dropout > 0:
+        s1, s2 = fold_seed(drop_seed, 1), fold_seed(drop_seed, 2)
+
+    def qkv_part(x, layer):
+        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"]).to(cdt)
+        qkv = (h @ layer["qkv_w"].to(cdt).reshape(D, 3 * D)).view(B, S, 3, nh, hd)
+        qkv = qkv + layer["qkv_b"].to(cdt)
+        # (B, nh, S, hd), contiguous: the attention kernels take no strides.
+        return tuple(qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+
+    def out_mlp_part(x, o, layer):
+        o = o.transpose(1, 2).reshape(B, S, D) @ layer["out_w"].to(cdt).reshape(D, D)
+        x = x + _dropout(o + layer["out_b"].to(cdt), config.dropout, s1)
+        h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"]).to(cdt)
+        h = h @ layer["fc_w"].to(cdt) + layer["fc_b"].to(cdt)
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+        h = h @ layer["proj_w"].to(cdt) + layer["proj_b"].to(cdt)
+        return x + _dropout(h, config.dropout, s2)
+
+    if sub_remat:
+        q, k, v = checkpoint(qkv_part, x, layer, use_reentrant=False)
+    else:
+        q, k, v = qkv_part(x, layer)
+    o = resolve_attention(q, k, v, config.attention, attention_fn)  # (B, nh, S, hd)
+    if sub_remat:
+        return checkpoint(out_mlp_part, x, o, layer, use_reentrant=False)
+    return out_mlp_part(x, o, layer)
+
+
+def forward(
+    params: Dict[str, Any],
+    tokens,  # (B, S) int
+    config: GPTConfig,
+    attention_fn: Optional[Callable] = None,
+    dropout_seed: Optional[int] = None,
+    mesh=None,
+):
+    """Returns logits (B, S, vocab) in float32. Pass ``dropout_seed`` to enable
+    dropout (training); omit it for deterministic eval. One device only."""
+    if config.moe_experts:
+        raise NotImplementedError(_MOE_NOT_PORTED)
+    if config.remat and config.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' is not ported yet: ROADMAP.md Queue 1 item 4"
+        )
+    B, S = tokens.shape
+    cdt = config.dtype
+    wte = params["wte"].to(cdt)
+    x = F.embedding(tokens, wte) + params["wpe"].to(cdt)[:S][None]
+    use_dropout = dropout_seed is not None and config.dropout > 0
+    layers_seed = None
+    if use_dropout:
+        x = _dropout(x, config.dropout, fold_seed(dropout_seed, 0))
+        layers_seed = fold_seed(dropout_seed, 1)
+
+    save_attn = config.remat and config.remat_policy == "save_attn"
+
+    def block_fn(x, layer, idx):
+        seed = fold_seed(layers_seed, idx) if use_dropout else None
+        return _block(x, layer, config, attention_fn, seed, sub_remat=save_attn)
+
+    def remat_block_fn(x, layer, idx):
+        return checkpoint(block_fn, x, layer, idx, use_reentrant=False)
+
+    x = apply_stack(
+        params["blocks"],
+        x,
+        remat_block_fn if config.remat and not save_attn else block_fn,
+        n_layer=config.n_layer,
+        mesh=mesh,
+    )
+    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+    return _lm_head(x.to(cdt), wte)
+
+
+def loss_fn(
+    params: Dict[str, Any],
+    batch: Dict[str, Any],  # {"tokens": (B, S+1)} or {"inputs", "targets"}
+    config: GPTConfig,
+    attention_fn: Optional[Callable] = None,
+    dropout_seed: Optional[int] = None,
+    mesh=None,
+):
+    """Causal LM cross entropy (mean over tokens)."""
+    if "inputs" in batch:
+        inputs, targets = batch["inputs"], batch["targets"]
+    else:
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits = forward(params, inputs, config, attention_fn, dropout_seed, mesh)
+    return causal_lm_loss(logits, targets)
