@@ -15,7 +15,9 @@ exits non-zero and prints no result.
    remat, AdamW) through ``create_train_state`` -> ``make_train_step``, 3 warmup
    and 10 timed steps on one fixed batch. The loss must be finite and fall,
    each kernel must launch exactly n_layer times per step, and the first step's
-   loss and grad norm must match the same step with plain attention.
+   loss and grad norm must match the same weights and batch through plain
+   attention, and each layer's qkv_w gradient the same through the kernels'
+   plain versions.
 5. profile: two more steps under ``torch.profiler``; device time per step by
    kernel, grouped into the attention kernels, GEMMs and the rest.
 6. a ``kernels`` line, then the card's name and power limit, and last
@@ -45,13 +47,19 @@ ATTENTION_KERNELS = ("fwd_kernel", "fwd_mma_kernel", "bwd_dkdv", "bwd_dq")  # it
 # Tolerances. f32: those of tests/test_ops.py. bf16 forward: O 3e-2 (the
 # tests' bf16 tolerance; p is rounded to bf16 against a running max in the
 # kernel and against the final max in the plain version), lse 1e-4 (f32 from
-# the same staged inputs, summed in another order). bf16 backward: two bf16
-# ulps at the largest |value| (both sides round the same f32 sums to bf16).
+# the same staged inputs, summed in another order). bf16 backward: each of dq,
+# dk, dv on its own, relative Frobenius error ||a - b|| / ||b|| (both sides
+# round the same f32 sums to bf16, in another order: 1.3e-4 at most on an H100
+# at the main-path shape; a kernel that skipped one 64-key tile of the last 64
+# rows is off by about 3e-2, which the kernel check shows on the card each run).
 F32_FWD_TOL, F32_BWD_TOL = 2e-5, 5e-4
-BF16_O_TOL, BF16_LSE_TOL, BF16_BWD_ULPS = 3e-2, 1e-4, 2 * 2.0 ** -8
-# The main path against plain attention, first step, bf16: the two attention
-# paths round p and o to bf16 at different points.
-LOSS_TOL, GRAD_NORM_RTOL = 2e-2, 5e-2
+BF16_O_TOL, BF16_LSE_TOL, BF16_BWD_REL = 3e-2, 1e-4, 1e-3
+# The main path's first step, bf16, on the same weights and batch. Against
+# plain attention (attention="xla"), which rounds p and o to bf16 at other
+# points: loss absolute, global grad norm relative. Against the kernels' plain
+# versions, which round where the kernels do: each layer's qkv_w gradient,
+# ||a - b|| / ||b||.
+LOSS_TOL, GRAD_NORM_RTOL, QKV_GRAD_REL = 1e-3, 1e-3, 1e-2
 
 
 def emit(obj):
@@ -87,6 +95,12 @@ def cuda_ms(fn, iters=30):
     return statistics.median(times)
 
 
+def rel_err(a, b):
+    """||a - b|| / ||b|| in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
 def bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -103,14 +117,14 @@ def main():
     import ray_tpu_torch
     from ray_tpu_torch.models import (
         GPTConfig,
-        TrainState,
         create_train_state,
         default_optimizer,
+        loss_fn,
         make_train_step,
         shard_batch,
         train_flops_per_token,
     )
-    from ray_tpu_torch.models.training import tree_map
+    from ray_tpu_torch.models.training import tree_leaves
     from ray_tpu_torch.ops import _build, launch_counts, reset_launch_counts
     from ray_tpu_torch.ops.flash_attention import (
         _bwd_cuda,
@@ -132,7 +146,7 @@ def main():
 
     # ------------------------------------------------------------------ 2. build
     seconds = _build.build()
-    emit({"phase": "build", "seconds": seconds, "sources": list(_build.SOURCES)})
+    emit({"phase": "build", "seconds": seconds, "source": KERNEL_SOURCE})
 
     # ------------------------------------------------------------------ 3. kernels against plain
     def inputs(shape, dtype, seed):
@@ -151,15 +165,31 @@ def main():
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
         err_g = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, grads_ref)]
+        rel_g = [rel_err(a, b) for a, b in zip(grads, grads_ref)]
+        line = {"phase": "kernel_check", "case": case, "shape": list(shape), "dtype": str(dtype),
+                "causal": causal, "err_o": err_o, "err_lse": err_lse, "err_dq_dk_dv": err_g,
+                "rel_err_dq_dk_dv": rel_g, "ref_max_abs_dq_dk_dv":
+                [b.float().abs().max().item() for b in grads_ref]}
         if dtype == torch.float32:
-            tols = (F32_FWD_TOL, F32_FWD_TOL, F32_BWD_TOL)
+            line["tol_o_lse_grads"] = [F32_FWD_TOL, F32_FWD_TOL, F32_BWD_TOL]
+            ok = err_o <= F32_FWD_TOL and err_lse <= F32_FWD_TOL and max(err_g) <= F32_BWD_TOL
         else:
-            top = max(b.float().abs().max().item() for b in grads_ref)
-            tols = (BF16_O_TOL, BF16_LSE_TOL, BF16_BWD_ULPS * max(top, 1.0))
-        ok = err_o <= tols[0] and err_lse <= tols[1] and max(err_g) <= tols[2]
-        emit({"phase": "kernel_check", "case": case, "shape": list(shape), "dtype": str(dtype),
-              "causal": causal, "err_o": err_o, "err_lse": err_lse, "err_dq_dk_dv": err_g,
-              "tol_o_lse_grads": list(tols), "ok": ok})
+            # The limit must catch a kernel that skips one 64-key tile (keys
+            # 0-63) of the last 64 query rows: the plain backward of that
+            # block alone, taken off the reference, is what such a kernel gives.
+            r, t = slice(shape[1] - 64, None), slice(0, 64)
+            part = _bwd_plain(q[:, r], k[:, t], v[:, t], o[:, r], lse[:, r], do[:, r], False, scale)
+            dropped = [g.clone() for g in grads_ref]
+            for g, rows, p in zip(dropped, (r, t, t), part):
+                g[:, rows] = (g[:, rows].float() - p.float()).to(dtype)
+            rel_dropped = [rel_err(a, b) for a, b in zip(dropped, grads_ref)]
+            line["rel_err_tile_dropped"] = rel_dropped
+            line["tol_o_lse_grads_rel"] = [BF16_O_TOL, BF16_LSE_TOL, BF16_BWD_REL]
+            require(max(rel_dropped) > BF16_BWD_REL,
+                    f"{case}: the bf16 backward limit would pass a skipped tile {rel_dropped}")
+            ok = err_o <= BF16_O_TOL and err_lse <= BF16_LSE_TOL and max(rel_g) <= BF16_BWD_REL
+        line["ok"] = ok
+        emit(line)
         require(ok, f"kernel disagrees with its plain version: {case}")
         return err_o, max(err_g)
 
@@ -210,13 +240,36 @@ def main():
         {"tokens": rng.integers(0, cfg.vocab_size - 1, (B, S + 1)).astype(np.int32)}
     )
 
-    # The first step again with plain attention, on a copy of the same weights.
-    ref_params = tree_map(lambda t: t.detach().clone().requires_grad_(True), state.params)
-    ref_state = TrainState(params=ref_params, opt_state=opt.init(ref_params), step=0)
-    ref_step = make_train_step(dataclasses.replace(cfg, attention="xla"), opt)
-    _, ref_m = ref_step(ref_state, batch)
-    ref_loss, ref_gnorm = ref_m["loss"].item(), ref_m["grad_norm"].item()
-    del ref_params, ref_state, ref_m
+    # The first step's loss and gradients on the initial weights, before the
+    # train step updates them: through the kernels; through the kernels' plain
+    # versions (the same rounding points, so each layer's qkv_w gradient must
+    # agree closely); and through plain attention (attention="xla": the loss
+    # and grad norm the main path's first step must match).
+    class PlainKernels(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v):
+            o, lse = _fwd_plain(q, k, v, True, hd ** -0.5)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            return _bwd_plain(*ctx.saved_tensors, do, True, hd ** -0.5)
+
+    leaves = tree_leaves(state.params)
+    qkv_i = next(i for i, t in enumerate(leaves) if t is state.params["blocks"]["qkv_w"])
+
+    def loss_and_grads(config, attention_fn=None):
+        loss = loss_fn(state.params, batch, config, attention_fn)
+        grads = torch.autograd.grad(loss, leaves)
+        gnorm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+        return loss.item(), gnorm.item(), grads[qkv_i]
+
+    qkv_grad = loss_and_grads(cfg)[2]
+    plain_qkv_grad = loss_and_grads(cfg, PlainKernels.apply)[2]
+    qkv_rel = [rel_err(a, b) for a, b in zip(qkv_grad, plain_qkv_grad)]  # per layer
+    ref_loss, ref_gnorm, _ = loss_and_grads(dataclasses.replace(cfg, attention="xla"))
+    del qkv_grad, plain_qkv_grad
     torch.cuda.empty_cache()
 
     step = make_train_step(cfg, opt)
@@ -252,6 +305,7 @@ def main():
           "losses": losses, "grad_norms": gnorms,
           "plain_attention_first_loss": ref_loss, "plain_attention_first_grad_norm": ref_gnorm,
           "first_loss_abs_err": loss_err, "first_grad_norm_rel_err": gnorm_rel,
+          "first_qkv_w_grad_rel_err_vs_plain_kernels_per_layer": qkv_rel,
           "step_ms_timed": timed, "step_ms_median": med_ms, "tokens_per_s": tokens_per_s,
           "train_flops_per_token": flops_per_token,
           "mfu": flops_per_token * tokens_per_s / PEAK_BF16_FLOPS,
@@ -260,6 +314,8 @@ def main():
     require(loss_err <= LOSS_TOL, f"first loss {losses[0]} vs plain attention {ref_loss}")
     require(gnorm_rel <= GRAD_NORM_RTOL,
             f"first grad norm {gnorms[0]} vs plain attention {ref_gnorm}")
+    require(max(qkv_rel) <= QKV_GRAD_REL,
+            f"qkv_w gradient vs the kernels' plain versions, per layer: {qkv_rel}")
 
     steps = WARMUP + TIMED
     require(launches == {"flash_fwd": cfg.n_layer * steps, "flash_bwd": cfg.n_layer * steps},

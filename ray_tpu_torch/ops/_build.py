@@ -1,12 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+A source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. The library lands in
 ``ray_tpu_torch/_build/``, named by a hash of its source and flags, so an edit
 to the source rebuilds it and an unchanged source is built once per checkout.
 Nothing is built at import: the first call on a CUDA tensor builds what it
-needs, and ``build()`` builds every source at once (one ``nvcc`` per source,
-started together).
+needs, and ``build()`` builds ahead of that.
 """
 
 from __future__ import annotations
@@ -18,12 +17,12 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("flash_attention",)
+SOURCE = "flash_attention"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,35 +46,25 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
 
 
-def build(names: Iterable[str] = SOURCES) -> float:
-    """Build every named source that is not built yet, all ``nvcc`` processes
-    at once. Returns the seconds taken; raises with the compiler's output on
-    a failure. ``nvcc``'s log (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside each library as ``<library>.log``."""
+def build(name: str = SOURCE) -> float:
+    """Build ``csrc/<name>.cu`` unless it is built already. Returns the seconds
+    taken; raises with the compiler's output on a failure. ``nvcc``'s log
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
+    library as ``<library>.log``."""
     t0 = time.perf_counter()
-    todo = [(n, library_path(n)) for n in names]
-    todo = [(n, p) for n, p in todo if not os.path.exists(p)]
-    if not todo:
+    path = library_path(name)
+    if os.path.exists(path):
         return time.perf_counter() - t0
-    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = []
-    for name, path in todo:
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
-        procs.append((name, path, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, path, tmp, proc in procs:
-        log, _ = proc.communicate()
-        with open(path + ".log", "w") as f:
-            f.write(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    tmp = f"{path}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    with open(path + ".log", "w") as f:
+        f.write(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name}.cu (nvcc exit {proc.returncode}):\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
     return time.perf_counter() - t0
 
 
@@ -84,6 +73,6 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = _libs[name] = ctypes.CDLL(library_path(name))
         return lib
