@@ -4,7 +4,7 @@ Layout is (batch, heads, seq, head_dim), as in the JAX package. Backends:
 
 - ``"flash"`` (the default): ``_FlashBHSD``, an autograd function whose forward
   and backward are the hand-written CUDA kernels of ``csrc/flash_attention.cu``
-  on a CUDA tensor (bf16 on the tensor cores, f32 on the CUDA cores), and
+  on a CUDA tensor (bf16: ``wgmma`` fed by TMA; f32: the CUDA cores), and
   their plain PyTorch versions (``_fwd_plain``, ``_bwd_plain``) on a CPU
   tensor. On CUDA it launches the kernel or raises.
 - ``"xla"``: ``xla_attention``, plain attention on the full score matrix.
@@ -127,7 +127,7 @@ def _lib():
     if lib.flash_fwd.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.flash_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [ctypes.c_float, ptr]
-        lib.flash_bwd.argtypes = [ptr] * 9 + [i32] * 5 + [ctypes.c_float, ptr]
+        lib.flash_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ctypes.c_float, ptr]
         lib.flash_fwd.restype = lib.flash_bwd.restype = ctypes.c_int
     return lib
 
@@ -160,6 +160,26 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _check_aligned(**tensors):
+    """The bf16 kernels read and write by TMA, which takes 16-byte aligned
+    addresses: raise on any other (a view at an odd offset), never copy."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data pointer {t.data_ptr():#x} is not 16-byte aligned")
+
+
+# flash_fwd / flash_bwd return 0, a cudaError_t, or this base plus a CUresult
+# from encoding a TMA tensor map (csrc/flash_attention.cu).
+_CU_RESULT_BASE = 100000
+
+
+def _raise_on(err, name):
+    if err >= _CU_RESULT_BASE:
+        raise RuntimeError(f"{name}: encoding a TMA tensor map failed: CUresult {err - _CU_RESULT_BASE}")
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def _stream(t):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
@@ -169,32 +189,40 @@ def _fwd_cuda(q, k, v, causal: bool, sm_scale: float):
     bh, seq, d = _check_qkv(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, seq), dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        _check_aligned(q=q, k=k, v=v, o=o)
     with torch.cuda.device(q.device):
         err = _lib().flash_fwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), bh, seq, d,
             _DTYPE_CODES[q.dtype], int(causal), sm_scale, _stream(q),
         )
-    if err:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+    _raise_on(err, "flash_fwd")
     _fwd_cuda.launches += 1
     return o, lse
 
 
 def _bwd_cuda(q, k, v, do, lse, delta, causal: bool, sm_scale: float):
-    """Launch the backward kernels on (bh, S, D) CUDA tensors: returns (dq, dk, dv)."""
+    """Launch the backward kernels on (bh, S, D) CUDA tensors: returns (dq, dk, dv).
+
+    In bf16 the kernel adds each K tile's share of dq into an f32 sum,
+    ``dq_accum``, in no fixed order, and rounds it into dq once; dk and dv are
+    bit-reproducible, dq's low bits may vary between runs."""
     bh, seq, d = _check_qkv(q, k, v)
     _check("do", do, q.dtype, q.shape)
     _check("lse", lse, torch.float32, (bh, seq))
     _check("delta", delta, torch.float32, (bh, seq))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq_accum = None
+    if q.dtype == torch.bfloat16:
+        dq_accum = torch.zeros((bh, seq, d), dtype=torch.float32, device=q.device)
+        _check_aligned(q=q, k=k, v=v, do=do, dq=dq, dk=dk, dv=dv, dq_accum=dq_accum)
     with torch.cuda.device(q.device):
         err = _lib().flash_bwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
-            _ptr(dq), _ptr(dk), _ptr(dv), bh, seq, d,
-            _DTYPE_CODES[q.dtype], int(causal), sm_scale, _stream(q),
+            _ptr(dq), _ptr(dk), _ptr(dv), None if dq_accum is None else _ptr(dq_accum),
+            bh, seq, d, _DTYPE_CODES[q.dtype], int(causal), sm_scale, _stream(q),
         )
-    if err:
-        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {err}")
+    _raise_on(err, "flash_bwd")
     _bwd_cuda.launches += 1
     return dq, dk, dv
 

@@ -128,3 +128,26 @@ def test_flash_backend_names():
         np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-5)
     with pytest.raises(ValueError):
         flash_attention(q, q, q, backend="pallas")
+
+
+def test_misaligned_pointer_raises_and_aligned_passes():
+    # The bf16 kernels read by TMA, which takes 16-byte aligned addresses; the
+    # wrapper raises on any other and never copies.
+    from ray_tpu_torch.ops.flash_attention import _check_aligned
+
+    base = torch.zeros(64, dtype=torch.bfloat16)
+    _check_aligned(q=base)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _check_aligned(q=base, k=base[1:])
+
+
+@pytest.mark.parametrize(
+    "err,match",
+    [(100000 + 201, "CUresult 201"), (719, "CUDA error 719")],
+)
+def test_launch_errors_are_decoded(err, match):
+    from ray_tpu_torch.ops.flash_attention import _raise_on
+
+    _raise_on(0, "flash_fwd")
+    with pytest.raises(RuntimeError, match=match):
+        _raise_on(err, "flash_fwd")

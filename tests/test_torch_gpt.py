@@ -99,6 +99,26 @@ def test_param_and_flop_counts_match(preset):
     assert tgpt.train_flops_per_token(tcfg, 1024) == jgpt.train_flops_per_token(jcfg, 1024)
 
 
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_matches_jax_in_distribution(rate):
+    # The two sides draw their masks from different generators, so they are
+    # compared in distribution on one large input: the kept fraction lies
+    # within 5 binomial standard deviations of 1 - rate on each side, the
+    # two fractions differ by no more than that, and every kept value is
+    # exactly x / (1 - rate).
+    x = np.ones((256, 1024), np.float32)
+    bound = 5 * np.sqrt(rate * (1 - rate) / x.size)
+    ours = tgpt._dropout(torch.as_tensor(x), rate, 0).numpy()
+    ref = np.asarray(jgpt._dropout(jnp.asarray(x), rate, jax.random.PRNGKey(0)))
+    fractions = []
+    for out in (ours, ref):
+        kept = out != 0
+        fractions.append(kept.mean())
+        assert abs(fractions[-1] - (1 - rate)) <= bound
+        np.testing.assert_array_equal(out[kept], np.float32(1) / np.float32(1 - rate))
+    assert abs(fractions[0] - fractions[1]) <= bound
+
+
 def test_dropout_is_seeded_and_survives_recompute(weights, tokens):
     # Masks come from torch generators, not jax.random, so only their effect
     # is checked (as tests/test_ops.py::test_dropout_applied_and_deterministic_eval
