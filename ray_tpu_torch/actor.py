@@ -1,0 +1,315 @@
+"""Actors: stateful workers with ordered method dispatch.
+
+Reference: `python/ray/actor.py` (`ActorClass:377`, `ActorClass._remote:659`,
+`ActorHandle._actor_method_call:1111`); creation is registered with the GCS actor
+manager which leases a dedicated worker (`gcs_actor_manager.h:281`), and method
+calls go directly to that worker, ordered by the submission sequence
+(`transport/actor_scheduling_queue.h`). Here the dedicated worker is a spawned
+process whose main loop executes its queue in order.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+from ray_tpu_torch._private import serialization, worker as worker_mod
+from ray_tpu_torch._private.gcs import ActorInfo
+from ray_tpu_torch._private.ids import ActorID, ObjectID
+from ray_tpu_torch._private.protocol import ExecRequest, FunctionDescriptor, TaskSpec
+from ray_tpu_torch._private.scheduler import ActorRecord
+from ray_tpu_torch._private.worker import ObjectRef, global_worker
+from ray_tpu_torch.remote_function import _apply_strategy, _resources_from_options
+
+_VALID_ACTOR_OPTIONS = {
+    "num_cpus",
+    "num_gpus",
+    "resources",
+    "max_restarts",
+    "max_task_retries",
+    "max_concurrency",
+    "concurrency_groups",
+    "name",
+    "namespace",
+    "lifetime",
+    "scheduling_strategy",
+    "runtime_env",
+    "memory",
+    "get_if_exists",
+}
+
+
+class ActorMethod:
+    def __init__(self, handle: "ActorHandle", name: str, num_returns: int = 1,
+                 generator_backpressure: Optional[int] = None,
+                 concurrency_group: Optional[str] = None):
+        self._handle = handle
+        self._name = name
+        self._num_returns = num_returns
+        self._generator_backpressure = generator_backpressure
+        self._concurrency_group = concurrency_group
+
+    def options(self, **opts) -> "ActorMethod":
+        # Unspecified options keep their declared (decorator) values — an
+        # .options(concurrency_group=...) call must not silently reset a
+        # @method(num_returns=2) declaration back to 1.
+        return ActorMethod(
+            self._handle,
+            self._name,
+            opts.get("num_returns", self._num_returns),
+            opts.get("generator_backpressure", self._generator_backpressure),
+            opts.get("concurrency_group", self._concurrency_group),
+        )
+
+    def remote(self, *args, **kwargs):
+        return self._handle._actor_method_call(
+            self._name, args, kwargs, self._num_returns,
+            self._generator_backpressure,
+            concurrency_group=self._concurrency_group,
+        )
+
+    def __call__(self, *args, **kwargs):
+        raise TypeError(
+            f"Actor method '{self._name}' cannot be called directly; use "
+            f"'.{self._name}.remote()'."
+        )
+
+
+class ActorHandle:
+    def __init__(self, actor_id: ActorID, class_name: str = "Actor",
+                 method_meta: Optional[Dict[str, int]] = None,
+                 method_groups: Optional[Dict[str, str]] = None):
+        self._actor_id = actor_id
+        self._class_name = class_name
+        # method name -> num_returns, collected from @ray_tpu_torch.method decorators.
+        self._method_meta = method_meta or {}
+        # method name -> declared concurrency group (@ray_tpu_torch.method(
+        # concurrency_group=...)); .options() on the call site overrides.
+        self._method_groups = method_groups or {}
+
+    def __getattr__(self, name: str) -> ActorMethod:
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return ActorMethod(
+            self, name, self._method_meta.get(name, 1),
+            concurrency_group=self._method_groups.get(name),
+        )
+
+    def __repr__(self):
+        return f"ActorHandle({self._class_name}, {self._actor_id.hex()[:12]})"
+
+    def __reduce__(self):
+        return (
+            ActorHandle,
+            (self._actor_id, self._class_name, self._method_meta,
+             self._method_groups),
+        )
+
+    def __hash__(self):
+        return hash(self._actor_id)
+
+    def __eq__(self, other):
+        return isinstance(other, ActorHandle) and other._actor_id == self._actor_id
+
+    def _actor_method_call(self, method_name: str, args, kwargs, num_returns,
+                           generator_backpressure: Optional[int] = None,
+                           concurrency_group: Optional[str] = None):
+        from ray_tpu_torch.remote_function import _resolve_backpressure
+
+        returns_mode = None
+        backpressure = _resolve_backpressure(
+            {"generator_backpressure": generator_backpressure}, num_returns
+        )
+        if num_returns in ("dynamic", "streaming"):
+            # Generator actor method (sync generators, or `async def` methods
+            # yielding via an async generator — the basis of Serve streaming
+            # responses; reference: `_raylet.pyx` streaming generator actor
+            # tasks).
+            returns_mode = num_returns
+            num_returns = 1 if returns_mode == "dynamic" else 0
+        task_id = global_worker.next_task_id()
+        spec = TaskSpec(
+            task_id=task_id,
+            func=FunctionDescriptor("", method_name),
+            num_returns=num_returns,
+            returns_mode=returns_mode,
+            generator_backpressure=backpressure,
+            actor_id=self._actor_id,
+            method_name=method_name,
+            name=f"{self._class_name}.{method_name}",
+            concurrency_group=concurrency_group,
+        )
+        from ray_tpu_torch.util import tracing
+
+        submit_span = None
+        if tracing.is_enabled():
+            # None = unsampled root: no context rides the spec.
+            submit_span = tracing.start_span(
+                f"actor::{spec.name}", "submit", attributes={"task_id": task_id.hex()}
+            )
+            if submit_span is not None:
+                spec.trace_context = tracing.context_of(submit_span)
+                spec.env_vars.setdefault("RAY_TPU_TORCH_TRACING", "1")
+        try:
+            entries, kwentries = worker_mod._serialize_arg_entries(args, kwargs)
+            return_ids = [ObjectID.for_return(task_id, i + 1) for i in range(num_returns)]
+            # Owner-side record (ownership.py): registered before the submit
+            # so the seal forward resolves this process's gets in-process.
+            if return_ids:
+                global_worker.ownership.expect(
+                    [oid.binary() for oid in return_ids]
+                )
+            req = ExecRequest(spec=spec, arg_metas=[], kwarg_metas={}, return_ids=return_ids)
+            req._arg_entries = entries
+            req._kwarg_entries = kwentries
+            global_worker.context.submit_actor_task(req)
+        finally:
+            if submit_span is not None:
+                tracing.end_span(submit_span)
+        if returns_mode == "streaming":
+            return worker_mod.ObjectRefGenerator(task_id)
+        refs = [ObjectRef(oid) for oid in return_ids]
+        return refs[0] if num_returns == 1 else refs
+
+    @property
+    def __ray_ready__(self):  # parity helper: `get(actor.__ray_ready__.remote())`
+        return ActorMethod(self, "__ray_ready__")
+
+
+class ActorClass:
+    def __init__(self, cls: type, options: Optional[Dict[str, Any]] = None):
+        self._cls = cls
+        self._options = dict(options or {})
+        for k in self._options:
+            if k not in _VALID_ACTOR_OPTIONS:
+                raise ValueError(f"Invalid actor option: {k}")
+        self._blob: Optional[bytes] = None
+        self._function_id: Optional[str] = None
+
+    def __call__(self, *args, **kwargs):
+        raise TypeError(
+            f"Actor class {self._cls.__name__} cannot be instantiated directly; "
+            f"use {self._cls.__name__}.remote()."
+        )
+
+    def options(self, **opts) -> "ActorClass":
+        merged = dict(self._options)
+        merged.update(opts)
+        ac = ActorClass(self._cls, merged)
+        ac._blob = self._blob
+        ac._function_id = self._function_id
+        return ac
+
+    def bind(self, *args, **kwargs):
+        """Build a lazy actor DAG node (reference: `dag/class_node.py`)."""
+        from ray_tpu_torch.dag import ClassNode
+
+        return ClassNode(self, args, kwargs)
+
+    def remote(self, *args, **kwargs) -> ActorHandle:
+        worker_mod._auto_init()
+        opts = self._options
+        name = opts.get("name")
+        lifetime = opts.get("lifetime")
+        if lifetime not in (None, "detached", "non_detached"):
+            # An unknown lifetime must not silently downgrade to "owned".
+            raise ValueError(
+                f'lifetime must be "detached" or "non_detached", got {lifetime!r}'
+            )
+        if name and opts.get("get_if_exists"):
+            existing = global_worker.context.get_actor_by_name(name)
+            if existing is not None:
+                return ActorHandle(existing, self._cls.__name__)
+        if self._blob is None:
+            self._blob = serialization.dumps(self._cls)
+            self._function_id = worker_mod.function_id_of(self._blob)
+        actor_id = ActorID.of(global_worker.job_id)
+        task_id = global_worker.next_task_id()
+        resources = _resources_from_options(opts, default_cpus=0.0)
+        renv = dict(opts.get("runtime_env") or {})
+        spec = TaskSpec(
+            task_id=task_id,
+            func=FunctionDescriptor(self._function_id, self._cls.__name__),
+            num_returns=0,
+            resources=resources,
+            actor_id=actor_id,
+            is_actor_creation=True,
+            name=f"{self._cls.__name__}.__init__",
+            max_concurrency=max(1, int(opts.get("max_concurrency", 1))),
+            concurrency_groups=(
+                {str(g): int(n) for g, n in opts["concurrency_groups"].items()}
+                if opts.get("concurrency_groups")
+                else None
+            ),
+            env_vars=dict(renv.get("env_vars") or {}),
+            runtime_env={k: v for k, v in renv.items() if k != "env_vars"} or None,
+        )
+        _apply_strategy(spec, opts.get("scheduling_strategy"))
+        from ray_tpu_torch.util import tracing
+
+        submit_span = None
+        if tracing.is_enabled():
+            # Creation submit span: the worker-side creation execute span
+            # (worker_main._execute) parents onto it via spec.trace_context,
+            # same as task and method-call submissions.
+            submit_span = tracing.start_span(
+                f"actor_create::{self._cls.__name__}", "submit",
+                attributes={"actor_id": actor_id.hex(), "task_id": task_id.hex()},
+            )
+            if submit_span is not None:
+                spec.trace_context = tracing.context_of(submit_span)
+                spec.env_vars.setdefault("RAY_TPU_TORCH_TRACING", "1")
+        try:
+            entries, kwentries = worker_mod._serialize_arg_entries(args, kwargs)
+            req = ExecRequest(
+                spec=spec, arg_metas=[], kwarg_metas={}, func_blob=self._blob, return_ids=[]
+            )
+            req._saved_arg_entries = entries
+            req._saved_kwarg_entries = kwentries
+            from ray_tpu_torch._private.config import get_config
+
+            max_restarts = int(
+                opts.get("max_restarts", get_config().actor_max_restarts)
+            )
+            if max_restarts < 0:  # -1 = infinite, like the reference
+                max_restarts = 1 << 30
+            ar = ActorRecord(
+                actor_id=actor_id,
+                creation_req=req,
+                resources=resources,
+                max_restarts=max_restarts,
+                detached=(lifetime == "detached"),
+            )
+            info = ActorInfo(
+                actor_id=actor_id,
+                name=name,
+                class_name=self._cls.__name__,
+                max_restarts=max_restarts,
+            )
+            global_worker.context.create_actor((ar, info, name))
+        finally:
+            if submit_span is not None:
+                tracing.end_span(submit_span)
+        method_meta = {
+            n: getattr(m, "__ray_tpu_num_returns__")
+            for n, m in vars(self._cls).items()
+            if callable(m) and hasattr(m, "__ray_tpu_num_returns__")
+        }
+        method_groups = {
+            n: getattr(m, "__ray_tpu_concurrency_group__")
+            for n, m in vars(self._cls).items()
+            if callable(m) and getattr(m, "__ray_tpu_concurrency_group__", None)
+        }
+        return ActorHandle(actor_id, self._cls.__name__, method_meta, method_groups)
+
+
+def method(**opts):
+    """`@ray_tpu_torch.method(num_returns=n, concurrency_group="io")` decorator for
+    actor methods (reference: `python/ray/actor.py` `@ray.method`)."""
+
+    def decorator(fn):
+        fn.__ray_tpu_num_returns__ = opts.get("num_returns", 1)
+        if opts.get("concurrency_group"):
+            fn.__ray_tpu_concurrency_group__ = str(opts["concurrency_group"])
+        return fn
+
+    return decorator

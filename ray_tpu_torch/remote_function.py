@@ -1,0 +1,296 @@
+"""`@ray_tpu_torch.remote` functions (reference: `python/ray/remote_function.py`,
+`RemoteFunction._remote` at `:240` — pickle the function once, register it in the
+GCS function table, then submit TaskSpecs referencing it by hash)."""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, Optional
+
+from ray_tpu_torch._private import failpoints, serialization, worker as worker_mod
+from ray_tpu_torch._private.ids import ObjectID
+from ray_tpu_torch._private.protocol import FunctionDescriptor, TaskSpec
+from ray_tpu_torch._private.scheduler import TaskRecord, fast_task_record
+from ray_tpu_torch._private.worker import ObjectRef, global_worker
+from ray_tpu_torch.util import tracing
+
+_VALID_OPTIONS = {
+    "num_cpus",
+    "num_gpus",  # the node's "GPU" resource
+    "resources",
+    "num_returns",
+    "generator_backpressure",
+    "max_retries",
+    "name",
+    "scheduling_strategy",
+    "retry_exceptions",
+    "runtime_env",
+    "memory",
+    "_metadata",
+}
+
+# Function ids this process has already shipped/registered.
+_sent_functions: set = set()
+_sent_lock = threading.Lock()
+
+# Wire suffix of return-object index 1 (the single-return common case).
+_RETURN_IDX1 = (1).to_bytes(4, "little")
+
+# Hot-path local aliases: module-attribute loads add up at >100k calls/s.
+_time = time.time
+_spec_new = TaskSpec.__new__
+_oid_trusted = ObjectID._trusted
+
+# Default producer-side window for streaming tasks (reference:
+# `_generator_backpressure_num_objects`): bounds how far a producer runs
+# ahead of its consumer, and doubles as the cooperative-stop checkpoint when
+# the consumer drops the generator — without it an unconsumed infinite
+# generator would occupy a worker forever.
+DEFAULT_GENERATOR_BACKPRESSURE = 64
+
+
+def _resolve_backpressure(opts, num_returns):
+    """Validate/resolve the generator_backpressure option (streaming only)."""
+    raw = opts.get("generator_backpressure")
+    if raw is None:
+        return DEFAULT_GENERATOR_BACKPRESSURE if num_returns == "streaming" else None
+    if num_returns != "streaming":
+        raise ValueError(
+            'generator_backpressure requires num_returns="streaming"'
+        )
+    val = int(raw)
+    if val <= 0:
+        raise ValueError(f"generator_backpressure must be positive, got {raw!r}")
+    return val
+
+
+def _resources_from_options(opts: Dict[str, Any], default_cpus: float) -> Dict[str, float]:
+    res: Dict[str, float] = {}
+    num_cpus = opts.get("num_cpus")
+    res["CPU"] = float(num_cpus) if num_cpus is not None else default_cpus
+    if opts.get("num_gpus"):
+        res["GPU"] = float(opts["num_gpus"])
+    for k, v in (opts.get("resources") or {}).items():
+        res[k] = float(v)
+    if res.get("CPU") == 0:
+        res.pop("CPU")
+    return res
+
+
+def _apply_strategy(spec: TaskSpec, strategy) -> None:
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+        PlacementGroupSchedulingStrategy,
+    )
+
+    if strategy is None or strategy == "DEFAULT":
+        return
+    if isinstance(strategy, PlacementGroupSchedulingStrategy):
+        spec.placement_group_id = strategy.placement_group._id
+        spec.placement_group_bundle_index = strategy.placement_group_bundle_index
+    elif isinstance(strategy, (NodeAffinitySchedulingStrategy,)) or strategy == "SPREAD":
+        spec.scheduling_strategy = strategy
+    else:
+        raise ValueError(f"Unknown scheduling strategy: {strategy!r}")
+
+
+class RemoteFunction:
+    def __init__(self, function, options: Optional[Dict[str, Any]] = None):
+        self._function = function
+        self._options = dict(options or {})
+        for k in self._options:
+            if k not in _VALID_OPTIONS:
+                raise ValueError(f"Invalid @remote option: {k}")
+        self._blob: Optional[bytes] = None
+        self._function_id: Optional[str] = None
+        # Submission template (built on first `.remote()`): every option-
+        # derived TaskSpec field is identical across calls of the same
+        # RemoteFunction, so the hot path copies a prebuilt field dict and
+        # stamps only task_id/submitted_ts instead of re-deriving ~20 fields
+        # per call (`.remote()` is the control-plane hot path).
+        self._spec_proto: Optional[dict] = None
+        self._dispatch_key: Optional[tuple] = None
+        self.__name__ = getattr(function, "__name__", "remote_function")
+
+    def _ensure_pickled(self):
+        if self._blob is None:
+            self._blob = serialization.dumps(self._function)
+            self._function_id = worker_mod.function_id_of(self._blob)
+
+    def __call__(self, *args, **kwargs):
+        raise TypeError(
+            f"Remote function '{self.__name__}' cannot be called directly; use "
+            f"'{self.__name__}.remote()'."
+        )
+
+    def options(self, **opts) -> "RemoteFunction":
+        merged = dict(self._options)
+        merged.update(opts)
+        rf = RemoteFunction(self._function, merged)
+        rf._blob = self._blob
+        rf._function_id = self._function_id
+        return rf
+
+    def remote(self, *args, **kwargs):
+        return self._remote(args, kwargs, self._options)
+
+    def bind(self, *args, **kwargs):
+        """Build a lazy DAG node (reference: `dag/function_node.py`); run the
+        graph with `.execute(...)`."""
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
+
+    def _build_template(self, opts) -> None:
+        """Precompute the option-derived TaskSpec fields + dispatch class.
+        Everything here is invariant across `.remote()` calls of this
+        RemoteFunction (options() returns a NEW RemoteFunction), so the hot
+        path pays one dict copy instead of re-deriving each field."""
+        self._ensure_pickled()
+        nr = opts.get("num_returns", 1)
+        returns_mode = None
+        backpressure = _resolve_backpressure(opts, nr)
+        if nr in ("dynamic", "streaming"):
+            # Generator task (reference: `num_returns="dynamic"` in
+            # `python/ray/remote_function.py`, streaming generators in
+            # `_raylet.pyx`): "dynamic" returns one ref resolving to a
+            # DynamicObjectRefGenerator; "streaming" returns an
+            # ObjectRefGenerator whose items arrive incrementally.
+            returns_mode = nr
+            num_returns = 1 if nr == "dynamic" else 0
+        else:
+            num_returns = int(nr)
+        renv = dict(opts.get("runtime_env") or {})
+        spec = TaskSpec(
+            task_id=None,  # stamped per call
+            func=FunctionDescriptor(self._function_id, self.__name__),
+            num_returns=num_returns,
+            returns_mode=returns_mode,
+            generator_backpressure=backpressure,
+            resources=_resources_from_options(opts, default_cpus=1.0),
+            max_retries=int(opts.get("max_retries", 0)),
+            name=opts.get("name") or self.__name__,
+            env_vars=dict(renv.get("env_vars") or {}),
+            runtime_env={k: v for k, v in renv.items() if k != "env_vars"} or None,
+        )
+        _apply_strategy(spec, opts.get("scheduling_strategy"))
+        # The dispatch class is option-derived too: precomputing it here
+        # saves the scheduler a frozenset+env_hash per record (shared tuple).
+        from ray_tpu_torch._private.scheduler import _PendingQueue
+
+        probe = TaskRecord.__new__(TaskRecord)
+        probe.spec = spec
+        probe.dispatch_key = None
+        self._dispatch_key = _PendingQueue.key_of(probe)
+        # NOTE: resources/env_vars/runtime_env dicts are SHARED across the
+        # specs built from this template — the runtime treats spec fields as
+        # immutable after submit (the tracing slow path copies before it
+        # mutates).
+        self._spec_proto = dict(spec.__dict__)
+
+    def _remote(self, args, kwargs, opts):
+        gw = global_worker
+        worker_mod._auto_init()
+        proto = self._spec_proto
+        if proto is None:
+            self._build_template(opts)
+            proto = self._spec_proto
+        task_id = gw.next_task_id()
+        num_returns = proto["num_returns"]
+        returns_mode = proto["returns_mode"]
+
+        spec = _spec_new(TaskSpec)
+        d = dict(proto)
+        d["task_id"] = task_id
+        d["submitted_ts"] = _time()
+        spec.__dict__ = d
+
+        # ONE sampling decision per root, made up front: the fast-path gate
+        # and the general path's span share it (a second draw in start_span
+        # would square the effective rate for no-arg tasks and desync the
+        # seeded keep/drop sequence).
+        traced = tracing._enabled or tracing._env_enabled
+        sampled = traced and not tracing.root_unsampled()
+        if (
+            num_returns == 1
+            and not args
+            and not kwargs
+            and not sampled
+            # Always-on tracing: an unsampled ROOT submit stays on the
+            # fast path — its whole tracing cost is the sampling draw.
+        ):
+            # Straight-line fast path for the dominant shape (one return, no
+            # args, untraced submit): everything below is the general path
+            # run in a specific order — this just skips its branches.
+            rid = _oid_trusted(task_id._binary + _RETURN_IDX1)
+            return_ids = [rid]
+            gw.ownership.expect_one(rid._binary)
+            if failpoints.ENABLED:
+                failpoints.maybe_crash("owner.crash_before_lease_grant")
+            blob = None
+            if self._function_id not in _sent_functions:
+                with _sent_lock:
+                    if self._function_id not in _sent_functions:
+                        blob = self._blob
+                        _sent_functions.add(self._function_id)
+            gw.context.submit_fast(
+                spec, return_ids, blob, self._dispatch_key
+            )
+            # num_returns == 1 here covers plain and "dynamic" tasks; both
+            # hand back the single return ref ("streaming" has 0 returns).
+            return ObjectRef(rid)
+
+        submit_span = None
+        if sampled:
+            # presampled: the decision above already covered this root.
+            submit_span = tracing.start_span(
+                f"task::{spec.name}", "submit",
+                attributes={"task_id": task_id.hex()}, presampled=True,
+            )
+            if submit_span is not None:
+                spec.trace_context = tracing.context_of(submit_span)
+                # Workers inherit tracing through the task env, so nested
+                # submissions from inside tasks are traced too. The template's
+                # env_vars dict is shared: copy before mutating.
+                spec.env_vars = dict(spec.env_vars)
+                spec.env_vars.setdefault("RAY_TPU_TORCH_TRACING", "1")
+        try:
+            entries, kwentries = worker_mod._serialize_arg_entries(args, kwargs)
+            return_ids = [ObjectID.for_return(task_id, i + 1) for i in range(num_returns)]
+            # Owner-side record: this process owns the results; the table
+            # entries go in BEFORE the submit so the seal forward can never
+            # race an unregistered object (get() then resolves in-process).
+            if return_ids:
+                global_worker.ownership.expect(
+                    [oid._binary for oid in return_ids]
+                )
+            if failpoints.ENABLED:
+                # Owner dies after recording the submit locally but before
+                # the control plane grants anything: dependents must see
+                # OwnerDiedError, never a hang (tests/test_ownership.py).
+                failpoints.maybe_crash("owner.crash_before_lease_grant")
+            blob = None
+            if self._function_id not in _sent_functions:
+                with _sent_lock:
+                    if self._function_id not in _sent_functions:
+                        blob = self._blob
+                        _sent_functions.add(self._function_id)
+            rec = fast_task_record(
+                spec, entries, kwentries, return_ids, blob,
+                spec.max_retries, self._dispatch_key,
+            )
+            global_worker.context.submit(rec)
+        finally:
+            # Always close the span: leaving it open would mis-parent every
+            # later span on this thread (and never flush this one).
+            if submit_span is not None:
+                tracing.end_span(submit_span)
+        if returns_mode == "streaming":
+            return worker_mod.ObjectRefGenerator(task_id)
+        refs = [ObjectRef(oid) for oid in return_ids]
+        if num_returns == 1:
+            return refs[0]
+        if num_returns == 0:
+            return None
+        return refs

@@ -1,8 +1,10 @@
 """The host-side helpers of chip_smoke.py, on the CPU: the ptxas report its
-build phase prints and the relative error its kernel checks use."""
+build phase prints, the relative error its kernel checks use, and the
+trainer phase's check that its own workers are gone after shutdown."""
 
 import os
 import sys
+import time
 
 import pytest
 import torch
@@ -38,3 +40,25 @@ def test_rel_err_floor(floor, expected):
     b = torch.tensor([2.0, 0.0])
     a = torch.tensor([3.0, 0.0])
     assert chip_smoke.rel_err(a, b, floor) == pytest.approx(expected)
+
+
+def test_trainer_cleanup_check_sees_only_this_runs_workers():
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        @ray_tpu_torch.remote
+        class Pid:
+            def pid(self):
+                return os.getpid()
+
+        pid = ray_tpu_torch.get(Pid.remote().pid.remote())
+        pids = chip_smoke.runtime_worker_pids()
+        assert pid in pids and all(chip_smoke.pid_alive(p) for p in pids)
+        assert not chip_smoke.pid_alive(-1)
+    finally:
+        ray_tpu_torch.shutdown()
+    deadline = time.time() + 10
+    while any(chip_smoke.pid_alive(p) for p in pids) and time.time() < deadline:
+        time.sleep(0.05)
+    assert not any(chip_smoke.pid_alive(p) for p in pids)
