@@ -34,7 +34,27 @@ exits non-zero and prints no result.
    and no session directory or worker process left after ``shutdown()``.
    ``overhead_pct`` sets the trainer's tokens/s beside the main path's, as
    ``bench.py`` does.
-7. a ``kernels`` line, then the card's name and power limit, and last
+7. the Llama shape: both bf16 kernels at Llama 3 8B's attention (bh 32,
+   S 8192, d 128, causal) against their plain versions
+   (``kernel_check_llama``), and their times beside the bounds, the plain
+   versions' and SDPA's (``kernel_times_llama``).
+8. the model zoo, each through ``create_train_state`` -> ``make_train_step``
+   for 8 steps with AdamW, weights from seed 0 and one batch from numpy seed
+   0, each step's launches counted from 0, then two profiled steps:
+   ``llama``: ``LlamaConfig.llama3_8b(n_layer=4)``, full width, B 1 x S 8192,
+   4 launches of each kernel per step, the first loss within 1e-3 of plain
+   attention's and near its value at init; ``moe``: GPT-2 small with 8 Switch
+   experts per block, B 16 x S 1024, 12 launches of each kernel per step, the
+   first loss against plain attention's, the aux loss and the share of tokens
+   over capacity; ``resnet50``: B 128 random 224 x 224 images, the first loss
+   against the same forward in f32.
+   ``remat_dots``: the main path's workload under ``remat_policy="dots"``,
+   4 steps, the forward kernel launched twice per layer per step (once in
+   the backward's recompute), the first loss and grad norm against the main
+   path's.
+9. a ``kernels`` line (launches per path: main_path, trainer, llama, moe,
+   remat_dots; times at the Llama shape too), checked for the keys the contract names,
+   then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``.
@@ -87,6 +107,26 @@ QKV_GRAD_REL, QKV_NORM_RTOL = 3e-2, 5e-3
 # The trainer phase's first loss against the main path's: same weights (seed
 # 0), batch, kernels and flags, in another process.
 TRAINER_FIRST_LOSS_TOL = 1e-4
+
+# The model zoo's phases. Llama 3 8B at full width with its depth cut to 4 of
+# 32 layers (one card's memory: 1.92 B params at 16 bytes each with AdamW),
+# B 1 x S 8192; GPT-2 small with 8 Switch experts and ResNet-50 at their
+# full sizes. Each trains ZOO_WARMUP + ZOO_TIMED steps.
+LLAMA_LAYERS, LLAMA_B, LLAMA_S = 4, 1, 8192
+MOE_EXPERTS, RESNET_B = 8, 128
+ZOO_WARMUP, ZOO_TIMED = 2, 6
+# Llama's first loss against init_loss_expected: the mean over 8192 tokens of
+# a target logit whose std is 0.02 * sqrt(4096) = 1.28 varies by about 0.014.
+INIT_LOSS_TOL = 0.1
+# ResNet-50's first loss (bf16) against the same forward in f32 (the tests'
+# bf16 loss tolerance), and against ln 1000: the head's normal(0.01) init
+# over pooled features whose squared norm is a few thousand puts the expected
+# loss about 0.2 above ln 1000, and the batch's target logits add about 0.06.
+RESNET_F32_LOSS_TOL, RESNET_INIT_LOSS_TOL = 2e-2, 0.5
+# The remat_dots phase: the main path's workload under remat_policy="dots",
+# 1 warmup and DOTS_TIMED timed steps; its first loss and grad norm are held
+# to the main path's with the trainer's and the main path's limits.
+DOTS_TIMED = 3
 
 
 def emit(obj):
@@ -217,11 +257,12 @@ def build_workload():
     return cfg, opt, state, batch
 
 
-def run_steps(cfg, opt, state, batch):
-    """WARMUP + TIMED train steps, each timed between two
+def run_steps(cfg, opt, state, batch, warmup=WARMUP, timed=TIMED, items=B * S):
+    """``warmup`` + ``timed`` train steps, each timed between two
     ``torch.cuda.synchronize()``s, with the launch counts set to 0 first.
     Returns the state, the step function and a dict of losses, grad norms,
-    step ms, each step's launches and the peak memory."""
+    step ms, ``items`` (tokens or images per step) per second, each step's
+    launches and the peak memory."""
     import torch
 
     from ray_tpu_torch.models import make_train_step
@@ -231,7 +272,7 @@ def run_steps(cfg, opt, state, batch):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, gnorms, step_ms, per_step = [], [], [], []
-    for _ in range(WARMUP + TIMED):
+    for _ in range(warmup + timed):
         before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -242,12 +283,11 @@ def run_steps(cfg, opt, state, batch):
         gnorms.append(m["grad_norm"].item())
         after = launch_counts()
         per_step.append({name: after[name] - before[name] for name in after})
-    timed = step_ms[WARMUP:]
-    med_ms = statistics.median(timed)
+    med_ms = statistics.median(step_ms[warmup:])
     return state, step, {
-        "losses": losses, "grad_norms": gnorms, "step_ms_timed": timed,
-        "step_ms_median": med_ms, "tokens_per_s": B * S / (med_ms / 1e3),
-        "step_ms_warmup": step_ms[:WARMUP],
+        "losses": losses, "grad_norms": gnorms, "step_ms_timed": step_ms[warmup:],
+        "step_ms_median": med_ms, "items_per_s": items / (med_ms / 1e3),
+        "step_ms_warmup": step_ms[:warmup],
         "launches_per_step": per_step, "launches": launch_counts(),
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
 
@@ -356,6 +396,261 @@ def bound(flops, nbytes):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def attention_bounds(bh, seq, hd, elt=2):
+    """The least time, in ms, and what bounds it, of the causal forward and
+    backward kernels on (bh, seq, hd): the products over the (query, key)
+    pairs the causal mask keeps (forward 2, backward 5, each 2 * hd
+    operations a pair) at the bf16 peak, against each input read once and
+    each output written once (forward q, k, v -> o and an f32 lse; backward
+    q, k, v, do and f32 lse, delta -> dq, dk, dv) at the memory rate."""
+    pairs = bh * seq * (seq + 1) / 2
+    fwd = bound(2 * 2 * hd * pairs, 4 * bh * seq * hd * elt + bh * seq * 4)
+    bwd = bound(5 * 2 * hd * pairs, 7 * bh * seq * hd * elt + 2 * bh * seq * 4)
+    return fwd, bwd
+
+
+# What the chip contract asks of every kernel in the ``kernels`` line.
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def check_kernels_line(line, paths):
+    """The problems of a ``kernels`` line, [] if none: each kernel has every
+    key of ``KERNEL_KEYS``, a positive time and bound, a route and a bound_by
+    of the contract's words, and was launched on each of ``paths``."""
+    problems = []
+    for k in line["kernels"]:
+        name = k.get("name", "?")
+        problems += [f"{name}: no {key}" for key in KERNEL_KEYS if key not in k]
+        if k.get("route") not in ("cuda", "triton"):
+            problems.append(f"{name}: route {k.get('route')!r}")
+        if k.get("bound_by") not in ("bytes", "operations"):
+            problems.append(f"{name}: bound_by {k.get('bound_by')!r}")
+        for key in ("ms", "plain_ms", "bound_ms"):
+            if not (isinstance(k.get(key), (int, float)) and k[key] > 0):
+                problems.append(f"{name}: {key} {k.get(key)!r}")
+        per_path = k.get("launches_per_path", {})
+        problems += [f"{name}: no launch on {p}" for p in paths if not per_path.get(p)]
+    return problems
+
+
+def init_loss_expected(vocab, d_model, std=0.02):
+    """The mean cross entropy at init of an LM whose final RMSNorm feeds an
+    untied head drawn from normal(std): each logit is normal with variance
+    std^2 * d_model (the normed rows have unit mean square), so the loss is
+    ln(vocab) + std^2 * d_model / 2."""
+    return math.log(vocab) + std * std * d_model / 2
+
+
+def first_step_reference(cfg, batch, model, extra=None):
+    """The loss of the first step's weights (seed 0) without the optimizer
+    state, through plain attention (``attention="xla"``) under no_grad, and
+    ``extra(params)`` under no_grad when given. Frees the weights before it
+    returns."""
+    import torch
+
+    params = model.init_params(cfg, 0)
+    with torch.no_grad():
+        ref = model.loss_fn(params, batch, dataclasses.replace(cfg, attention="xla")).item()
+        extra = extra(params) if extra else None
+    del params
+    torch.cuda.empty_cache()
+    return ref, extra
+
+
+def phase_llama(smi):
+    """Llama 3 8B at full width, depth cut to 4 layers, B 1 x S 8192."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import LlamaConfig, create_train_state, default_optimizer, shard_batch
+    from ray_tpu_torch.models import llama
+
+    cfg = LlamaConfig.llama3_8b(n_layer=LLAMA_LAYERS)
+    opt = default_optimizer(learning_rate=3e-4)
+    rng = np.random.default_rng(0)
+    batch = shard_batch({"tokens": rng.integers(0, cfg.vocab_size, (LLAMA_B, LLAMA_S + 1))
+                         .astype(np.int32)})
+    ref_loss, _ = first_step_reference(cfg, batch, llama)
+    state = create_train_state(cfg, 0, opt)
+    state, step, run = run_steps(cfg, opt, state, batch, warmup=ZOO_WARMUP, timed=ZOO_TIMED,
+                                 items=LLAMA_B * LLAMA_S)
+    losses = run["losses"]
+    expected = init_loss_expected(cfg.vocab_size, cfg.d_model)
+    flops = llama.train_flops_per_token(cfg, LLAMA_S)
+    line = {"phase": "llama", "model": "llama3_8b", "n_layer": cfg.n_layer,
+            "d_model": cfg.d_model, "n_head": cfg.n_head, "n_kv_head": cfg.n_kv_head,
+            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "rope_theta": cfg.rope_theta, "batch": LLAMA_B, "seq": LLAMA_S,
+            "params": llama.num_params(cfg), "dtype": "bfloat16", "remat_policy": cfg.remat_policy,
+            "losses": losses, "grad_norms": run["grad_norms"],
+            "plain_attention_first_loss": ref_loss,
+            "first_loss_abs_err": abs(losses[0] - ref_loss),
+            "ln_vocab": math.log(cfg.vocab_size), "init_loss_expected": expected,
+            "step_ms_warmup": run["step_ms_warmup"], "step_ms_timed": run["step_ms_timed"],
+            "step_ms_median": run["step_ms_median"], "tokens_per_s": run["items_per_s"],
+            "train_flops_per_token": flops, "mfu": flops * run["items_per_s"] / PEAK_BF16_FLOPS,
+            "peak_memory_gib": run["peak_memory_gib"], "launches": run["launches"],
+            "launches_per_step": run["launches_per_step"], "card": smi}
+    line["profile"] = profile_steps(step, state, batch, run["step_ms_median"])
+    emit(line)
+    check_launches("llama", run, cfg.n_layer)
+    require(all(math.isfinite(x) for x in losses), f"llama: non-finite loss {losses}")
+    require(line["first_loss_abs_err"] <= LOSS_TOL,
+            f"llama: first loss {losses[0]} vs plain attention {ref_loss}")
+    require(abs(losses[0] - expected) <= INIT_LOSS_TOL,
+            f"llama: first loss {losses[0]}, expected {expected} at init")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def phase_moe(smi):
+    """GPT-2 small with 8 Switch experts in every block, B 16 x S 1024."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import GPTConfig, create_train_state, default_optimizer, shard_batch
+    from ray_tpu_torch.models import gpt, moe
+
+    cfg = GPTConfig.gpt2_small(moe_experts=MOE_EXPERTS)
+    opt = default_optimizer(learning_rate=3e-4)
+    rng = np.random.default_rng(0)
+    batch = shard_batch({"tokens": rng.integers(0, cfg.vocab_size - 1, (B, S + 1)).astype(np.int32)})
+    dropped = []
+
+    def aux_and_dropped(params):
+        # Each layer's share of tokens over capacity, read from the routing
+        # its MoE layer computes, through the default (kernel) attention.
+        plain = moe.moe_mlp
+
+        def counting(x, router_w, *args, capacity_factor):
+            dropped.append(1 - moe.route(x, router_w, capacity_factor).keep.float().mean().item())
+            return plain(x, router_w, *args, capacity_factor=capacity_factor)
+
+        moe.moe_mlp = counting
+        try:
+            _, aux = gpt.forward(params, batch["tokens"][:, :-1], cfg, return_aux=True)
+        finally:
+            moe.moe_mlp = plain
+        return aux.item()
+
+    ref_loss, aux = first_step_reference(cfg, batch, gpt, aux_and_dropped)
+    state = create_train_state(cfg, 0, opt)
+    state, step, run = run_steps(cfg, opt, state, batch, warmup=ZOO_WARMUP, timed=ZOO_TIMED)
+    losses = run["losses"]
+    flops = gpt.train_flops_per_token(cfg, S)
+    line = {"phase": "moe", "model": "gpt2_small", "moe_experts": cfg.moe_experts,
+            "capacity_factor": cfg.moe_capacity_factor,
+            "capacity": moe.moe_capacity(S, cfg.moe_experts, cfg.moe_capacity_factor),
+            "batch": B, "seq": S, "params": gpt.num_params(cfg), "dtype": "bfloat16",
+            "remat_policy": cfg.remat_policy, "losses": losses, "grad_norms": run["grad_norms"],
+            "plain_attention_first_loss": ref_loss, "first_loss_abs_err": abs(losses[0] - ref_loss),
+            "first_aux_loss": aux, "dropped_share_per_layer": dropped,
+            "dropped_share": statistics.mean(dropped),
+            "step_ms_warmup": run["step_ms_warmup"], "step_ms_timed": run["step_ms_timed"],
+            "step_ms_median": run["step_ms_median"], "tokens_per_s": run["items_per_s"],
+            "train_flops_per_token": flops, "mfu": flops * run["items_per_s"] / PEAK_BF16_FLOPS,
+            "peak_memory_gib": run["peak_memory_gib"], "launches": run["launches"],
+            "launches_per_step": run["launches_per_step"], "card": smi}
+    line["profile"] = profile_steps(step, state, batch, run["step_ms_median"])
+    emit(line)
+    check_launches("moe", run, cfg.n_layer)
+    require(all(math.isfinite(x) for x in losses), f"moe: non-finite loss {losses}")
+    require(line["first_loss_abs_err"] <= LOSS_TOL,
+            f"moe: first loss {losses[0]} vs plain attention {ref_loss}")
+    require(math.isfinite(aux) and aux > 0, f"moe: aux loss {aux}")
+    require(len(dropped) == cfg.n_layer, f"moe: routed {len(dropped)} layers")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def phase_resnet50(smi):
+    """ResNet-50 on B 128 random 224 x 224 images; no attention, no kernel of
+    the port on its path."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import ResNetConfig, create_train_state, default_optimizer, shard_batch
+    from ray_tpu_torch.models import resnet
+
+    cfg = ResNetConfig.resnet50()
+    opt = default_optimizer(learning_rate=3e-4)
+    rng = np.random.default_rng(0)
+    batch = shard_batch({
+        "images": rng.standard_normal((RESNET_B, 224, 224, 3)).astype(np.float32),
+        "labels": rng.integers(0, cfg.num_classes, (RESNET_B,)).astype(np.int32)})
+    # The same weights and images in f32 (no TF32): the plain reference.
+    params = resnet.init_params(cfg, 0)
+    with torch.no_grad():
+        ref_loss = resnet.loss_fn(params, batch, dataclasses.replace(cfg, dtype=torch.float32)).item()
+    del params
+    torch.cuda.empty_cache()
+    state = create_train_state(cfg, 0, opt)
+    state, step, run = run_steps(cfg, opt, state, batch, warmup=ZOO_WARMUP, timed=ZOO_TIMED,
+                                 items=RESNET_B)
+    losses = run["losses"]
+    line = {"phase": "resnet50", "batch": RESNET_B, "image": [224, 224, 3],
+            "params": resnet.num_params(cfg), "dtype": "bfloat16", "losses": losses,
+            "grad_norms": run["grad_norms"], "f32_first_loss": ref_loss,
+            "first_loss_abs_err_vs_f32": abs(losses[0] - ref_loss),
+            "ln_classes": math.log(cfg.num_classes),
+            "first_loss_minus_ln_classes": losses[0] - math.log(cfg.num_classes),
+            "step_ms_warmup": run["step_ms_warmup"], "step_ms_timed": run["step_ms_timed"],
+            "step_ms_median": run["step_ms_median"], "images_per_s": run["items_per_s"],
+            "peak_memory_gib": run["peak_memory_gib"], "launches": run["launches"], "card": smi}
+    line["profile"] = profile_steps(step, state, batch, run["step_ms_median"])
+    emit(line)
+    require(all(math.isfinite(x) for x in losses), f"resnet50: non-finite loss {losses}")
+    require(line["first_loss_abs_err_vs_f32"] <= RESNET_F32_LOSS_TOL,
+            f"resnet50: first loss {losses[0]} vs f32 {ref_loss}")
+    require(abs(line["first_loss_minus_ln_classes"]) <= RESNET_INIT_LOSS_TOL,
+            f"resnet50: first loss {losses[0]} vs ln {cfg.num_classes}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+
+
+def phase_remat_dots(smi, main_loss, main_gnorm, main_peak_gib):
+    """The main path's workload under ``remat_policy="dots"``: each block is
+    checkpointed with its weight products' outputs saved, so the backward
+    recomputes the rest, the forward kernel included."""
+    import torch
+
+    cfg, opt, state, batch = build_workload()
+    cfg = dataclasses.replace(cfg, remat_policy="dots")
+    state, _, run = run_steps(cfg, opt, state, batch, warmup=1, timed=DOTS_TIMED)
+    losses, gnorms = run["losses"], run["grad_norms"]
+    line = {"phase": "remat_dots", "model": "gpt2_small", "batch": B, "seq": S,
+            "remat_policy": cfg.remat_policy, "losses": losses, "grad_norms": gnorms,
+            "first_loss_abs_err_vs_main_path": abs(losses[0] - main_loss),
+            "first_grad_norm_rel_err_vs_main_path": abs(gnorms[0] - main_gnorm) / main_gnorm,
+            "step_ms_timed": run["step_ms_timed"], "step_ms_median": run["step_ms_median"],
+            "tokens_per_s": run["items_per_s"], "peak_memory_gib": run["peak_memory_gib"],
+            "main_path_peak_memory_gib": main_peak_gib, "launches": run["launches"],
+            "launches_per_step": run["launches_per_step"], "card": smi}
+    emit(line)
+    # The forward kernel runs twice per layer per step: once, and again in
+    # the backward's recompute.
+    n = cfg.n_layer
+    for i, per_step in enumerate(run["launches_per_step"]):
+        require(per_step == {"flash_fwd": 2 * n, "flash_bwd": n},
+                f"remat_dots step {i}: kernel launches {per_step}, expected {2 * n} and {n}")
+    require(line["first_loss_abs_err_vs_main_path"] <= TRAINER_FIRST_LOSS_TOL,
+            f"remat_dots: first loss {losses[0]} vs the main path's {main_loss}")
+    require(line["first_grad_norm_rel_err_vs_main_path"] <= GRAD_NORM_RTOL,
+            f"remat_dots: first grad norm {gnorms[0]} vs the main path's {main_gnorm}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return run["launches"]
+
+
+def check_launches(path, run, n_layer):
+    for i, per_step in enumerate(run["launches_per_step"]):
+        require(len(per_step) == 2 and all(n == n_layer for n in per_step.values()),
+                f"{path} step {i}: kernel launches {per_step}, expected {n_layer} each")
+
+
 def main():
     import torch
 
@@ -395,7 +690,7 @@ def main():
         g = torch.Generator(device=dev).manual_seed(seed)
         return [torch.randn(shape, generator=g, device=dev).to(dtype) for _ in range(4)]
 
-    def check(case, shape, dtype, causal, seed):
+    def check(case, shape, dtype, causal, seed, phase="kernel_check"):
         q, k, v, do = inputs(shape, dtype, seed)
         scale = shape[-1] ** -0.5
         o, lse = _fwd_cuda(q, k, v, causal, scale)
@@ -409,7 +704,7 @@ def main():
         err_g = [(a.float() - b.float()).abs().max().item() for a, b in zip(grads, grads_ref)]
         floor = 1e-3 * grads_ref[2].float().norm()  # dv's: see the tolerances above
         rel_g = [rel_err(a, b, floor) for a, b in zip(grads, grads_ref)]
-        line = {"phase": "kernel_check", "case": case, "shape": list(shape), "dtype": str(dtype),
+        line = {"phase": phase, "case": case, "shape": list(shape), "dtype": str(dtype),
                 "causal": causal, "err_o": err_o, "err_lse": err_lse, "err_dq_dk_dv": err_g,
                 "rel_err_dq_dk_dv": rel_g, "ref_max_abs_dq_dk_dv":
                 [b.float().abs().max().item() for b in grads_ref]}
@@ -468,41 +763,54 @@ def main():
     emit(rerun)
     require(rerun["dk_identical"] and rerun["dv_identical"], "dk or dv differ between two runs")
     del runs
-    fwd = lambda: _fwd_cuda(q, k, v, True, scale)  # noqa: E731
-    bwd = lambda: _bwd_cuda(q, k, v, do, lse, delta, True, scale)  # noqa: E731
-    fwd_ms, bwd_ms = cuda_ms(fwd), cuda_ms(bwd)
-    fwd_plain_ms = cuda_ms(lambda: _fwd_plain(q, k, v, True, scale), calls=3)
-    bwd_plain_ms = cuda_ms(lambda: _bwd_plain(q, k, v, o, lse, do, True, scale), calls=3)
-    q4, k4, v4 = (t.view(B, -1, S, hd).detach().requires_grad_() for t in (q, k, v))
-    do4 = do.view(B, -1, S, hd)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    o4 = sdpa(q4, k4, v4, is_causal=True)
 
-    def lib_fwd():
-        with torch.no_grad():
-            sdpa(q4, k4, v4, is_causal=True)
+    def time_kernels(q, k, v, do, batch, plain_calls, plain_reps, one_call):
+        """Device time per call of both bf16 kernels on (bh, S, hd) inputs,
+        of their plain versions, and of one SDPA call on the same inputs
+        viewed as (batch, heads, S, hd), beside the kernels' bounds."""
+        bh_, s_, hd_ = q.shape
+        scale = hd_ ** -0.5
+        o, lse = _fwd_cuda(q, k, v, True, scale)
+        delta = _delta(o, do)
+        fwd = lambda: _fwd_cuda(q, k, v, True, scale)  # noqa: E731
+        bwd = lambda: _bwd_cuda(q, k, v, do, lse, delta, True, scale)  # noqa: E731
+        t = {"shape": [bh_, s_, hd_], "dtype": "bfloat16", "causal": True,
+             "flash_fwd_ms": cuda_ms(fwd), "flash_bwd_ms": cuda_ms(bwd),
+             "flash_fwd_plain_ms": cuda_ms(lambda: _fwd_plain(q, k, v, True, scale),
+                                           calls=plain_calls, reps=plain_reps),
+             "flash_bwd_plain_ms": cuda_ms(lambda: _bwd_plain(q, k, v, o, lse, do, True, scale),
+                                           calls=plain_calls, reps=plain_reps)}
+        q4, k4, v4 = (x.view(batch, -1, s_, hd_).detach().requires_grad_() for x in (q, k, v))
+        do4 = do.view(batch, -1, s_, hd_)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        o4 = sdpa(q4, k4, v4, is_causal=True)
 
-    lib_bwd = lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)  # noqa: E731
-    lib_fwd_ms, lib_bwd_ms = cuda_ms(lib_fwd), cuda_ms(lib_bwd)
-    one_call = {"flash_fwd_ms": cuda_ms_one_call(fwd), "sdpa_fwd_ms": cuda_ms_one_call(lib_fwd),
-                "flash_bwd_ms": cuda_ms_one_call(bwd), "sdpa_bwd_ms": cuda_ms_one_call(lib_bwd)}
-    del o4, q4, k4, v4, do4
+        def lib_fwd():
+            with torch.no_grad():
+                sdpa(q4, k4, v4, is_causal=True)
 
-    pairs = bh * S * (S + 1) / 2  # causal (query, key) pairs this run computes
-    elt = 2  # bf16 bytes
-    fwd_bound = bound(2 * 2 * hd * pairs, 4 * bh * S * hd * elt + bh * S * 4)
-    bwd_bound = bound(5 * 2 * hd * pairs, 7 * bh * S * hd * elt + 2 * bh * S * 4)
-    emit({"phase": "kernel_times", "shape": [bh, S, hd], "dtype": "bfloat16", "causal": True,
-          "card": smi, "flash_fwd_ms": fwd_ms, "flash_fwd_plain_ms": fwd_plain_ms,
-          "flash_fwd_bound_ms": fwd_bound[0], "sdpa_fwd_ms": lib_fwd_ms,
-          "flash_fwd_over_sdpa": fwd_ms / lib_fwd_ms,
-          "flash_bwd_ms": bwd_ms, "flash_bwd_plain_ms": bwd_plain_ms,
-          "flash_bwd_bound_ms": bwd_bound[0], "sdpa_bwd_ms": lib_bwd_ms,
-          "flash_bwd_over_sdpa": bwd_ms / lib_bwd_ms,
-          "timing": "device time per call: events around 20 back-to-back calls, median of 7",
-          "one_call": one_call,
-          "one_call_timing": "events around one call on an idle stream, median of 30: "
-                             "device time plus the host's enqueue"})
+        lib_bwd = lambda: torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)  # noqa: E731
+        t["sdpa_fwd_ms"], t["sdpa_bwd_ms"] = cuda_ms(lib_fwd), cuda_ms(lib_bwd)
+        for which, (ms, by) in zip(("fwd", "bwd"), attention_bounds(bh_, s_, hd_)):
+            t[f"flash_{which}_bound_ms"], t[f"flash_{which}_bound_by"] = ms, by
+            t[f"flash_{which}_over_sdpa"] = t[f"flash_{which}_ms"] / t[f"sdpa_{which}_ms"]
+        t["timing"] = "device time per call: events around 20 back-to-back calls, median of 7"
+        if one_call:
+            t["one_call"] = {"flash_fwd_ms": cuda_ms_one_call(fwd),
+                             "sdpa_fwd_ms": cuda_ms_one_call(lib_fwd),
+                             "flash_bwd_ms": cuda_ms_one_call(bwd),
+                             "sdpa_bwd_ms": cuda_ms_one_call(lib_bwd)}
+            t["one_call_timing"] = ("events around one call on an idle stream, median of 30: "
+                                    "device time plus the host's enqueue")
+        return t
+
+    times = time_kernels(q, k, v, do, B, plain_calls=3, plain_reps=7, one_call=True)
+    emit({"phase": "kernel_times", **times, "card": smi})
+    fwd_ms, bwd_ms = times["flash_fwd_ms"], times["flash_bwd_ms"]
+    fwd_plain_ms, bwd_plain_ms = times["flash_fwd_plain_ms"], times["flash_bwd_plain_ms"]
+    lib_fwd_ms, lib_bwd_ms, one_call = times["sdpa_fwd_ms"], times["sdpa_bwd_ms"], times["one_call"]
+    fwd_bound = times["flash_fwd_bound_ms"], times["flash_fwd_bound_by"]
+    bwd_bound = times["flash_bwd_bound_ms"], times["flash_bwd_bound_by"]
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
 
@@ -530,14 +838,12 @@ def main():
 
     state, step, run = run_steps(cfg, opt, state, batch)
     losses, gnorms, launches = run["losses"], run["grad_norms"], run["launches"]
-    for i, per_step in enumerate(run["launches_per_step"]):
-        require(all(n == cfg.n_layer for n in per_step.values()),
-                f"step {i}: kernel launches {per_step}, expected {cfg.n_layer} each")
+    check_launches("main path", run, cfg.n_layer)
     require(all(math.isfinite(x) for x in losses), f"non-finite loss: {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
     loss_err = abs(losses[0] - ref_loss)
     gnorm_rel = abs(gnorms[0] - ref_gnorm) / ref_gnorm
-    med_ms, tokens_per_s = run["step_ms_median"], run["tokens_per_s"]
+    med_ms, tokens_per_s = run["step_ms_median"], run["items_per_s"]
     flops_per_token = train_flops_per_token(cfg, S)
     emit({"phase": "main_path", "model": "gpt2_small", "batch": B, "seq": S,
           "dtype": "bfloat16", "remat_policy": cfg.remat_policy, "steps": len(losses),
@@ -618,7 +924,7 @@ def main():
     leftover_dirs = [session_dir] if os.path.exists(session_dir) else []
     leftover_pids = sorted(pid for pid in run_pids if pid_alive(pid))
     t_losses, t_launches = w["losses"], w["launches"]
-    t_tokens_per_s = w["tokens_per_s"]
+    t_tokens_per_s = w["items_per_s"]
     t_loss_err = abs(t_losses[0] - losses[0])
     emit({"phase": "trainer", "entry": "TorchTrainer.fit", "num_workers": 1, "use_gpu": True,
           "node_resources": node_resources, "driver_memory_reserved_bytes": driver_reserved,
@@ -654,9 +960,7 @@ def main():
             f"a reported CUDA tensor arrived as {loss_tensor!r}")
     require(w["library_mtime_ns_before"] == lib_mtime == w["library_mtime_ns_after"],
             "the worker did not load the kernel library the build phase built")
-    for i, per_step in enumerate(w["launches_per_step"]):
-        require(all(n == cfg.n_layer for n in per_step.values()) and len(per_step) == 2,
-                f"trainer step {i}: kernel launches {per_step}, expected {cfg.n_layer} each")
+    check_launches("trainer", w, cfg.n_layer)
     require(all(math.isfinite(x) for x in t_losses), f"trainer: non-finite loss: {t_losses}")
     require(t_losses[-1] < t_losses[0], f"trainer: loss did not fall: {t_losses}")
     require(t_loss_err <= TRAINER_FIRST_LOSS_TOL,
@@ -664,25 +968,57 @@ def main():
     require(not leftover_dirs, f"session directories left after shutdown: {leftover_dirs}")
     require(not leftover_pids, f"worker processes alive after shutdown: {leftover_pids}")
 
-    # ------------------------------------------------------------------ 7. result
-    launches_per_path = {name: {"main_path": launches[name], "trainer": t_launches[name]}
+    # ------------------------------------------------------------------ 7. the Llama shape
+    # Both bf16 kernels at Llama 3 8B's attention: bh 32 (B 1, 32 heads after
+    # the kv heads are repeated), S 8192, d 128, causal.
+    lbh, lhd = LLAMA_B * 32, 128
+    llama_err = check("llama3_8b bf16 causal", (lbh, LLAMA_S, lhd), torch.bfloat16, True, seed=12,
+                      phase="kernel_check_llama")
+    q, k, v, do = inputs((lbh, LLAMA_S, lhd), torch.bfloat16, seed=13)
+    llama_times = time_kernels(q, k, v, do, LLAMA_B, plain_calls=1, plain_reps=3, one_call=False)
+    emit({"phase": "kernel_times_llama", **llama_times, "card": smi})
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------ 8. the model zoo
+    zoo_launches = {"llama": phase_llama(smi), "moe": phase_moe(smi)}
+    phase_resnet50(smi)
+    zoo_launches["remat_dots"] = phase_remat_dots(smi, losses[0], gnorms[0],
+                                                  run["peak_memory_gib"])
+
+    # ------------------------------------------------------------------ 9. result
+    launches_per_path = {name: {"main_path": launches[name], "trainer": t_launches[name],
+                                **{path: n[name] for path, n in zoo_launches.items()}}
                          for name in launches}
-    emit({"kernels": [
+
+    def at_llama_shape(which, err):
+        t = llama_times
+        return {"shape": t["shape"], "ms": t[f"flash_{which}_ms"],
+                "plain_ms": t[f"flash_{which}_plain_ms"],
+                "bound_ms": t[f"flash_{which}_bound_ms"], "bound_by": t[f"flash_{which}_bound_by"],
+                "library_ms": t[f"sdpa_{which}_ms"], "max_abs_err": err}
+
+    kernels = {"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "ray_tpu/ops/flash_attention.py:59", "launches": launches["flash_fwd"],
          "launches_per_path": launches_per_path["flash_fwd"],
          "max_abs_err": main_err[0], "ms": fwd_ms, "plain_ms": fwd_plain_ms,
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": lib_fwd_ms,
          "ms_over_library_ms": fwd_ms / lib_fwd_ms, "ms_one_call": one_call["flash_fwd_ms"],
-         "library_ms_one_call": one_call["sdpa_fwd_ms"]},
+         "library_ms_one_call": one_call["sdpa_fwd_ms"],
+         "llama_shape": at_llama_shape("fwd", llama_err[0])},
         {"name": "flash_bwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "ray_tpu/ops/flash_attention.py:160", "launches": launches["flash_bwd"],
          "launches_per_path": launches_per_path["flash_bwd"],
          "max_abs_err": main_err[1], "ms": bwd_ms, "plain_ms": bwd_plain_ms,
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": lib_bwd_ms,
          "ms_over_library_ms": bwd_ms / lib_bwd_ms, "ms_one_call": one_call["flash_bwd_ms"],
-         "library_ms_one_call": one_call["sdpa_bwd_ms"]},
-    ]})
+         "library_ms_one_call": one_call["sdpa_bwd_ms"],
+         "llama_shape": at_llama_shape("bwd", llama_err[1])},
+    ]}
+    problems = check_kernels_line(kernels, ["main_path", "trainer", *zoo_launches])
+    require(not problems, f"kernels line: {problems}")
+    emit(kernels)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

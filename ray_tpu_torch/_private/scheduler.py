@@ -53,6 +53,8 @@ from ray_tpu_torch._private.protocol import ExecRequest, FunctionDescriptor, Tas
 from ray_tpu_torch._private.worker_main import WorkerArgs, worker_loop
 
 _mp = multiprocessing.get_context("spawn")
+# How long shutdown waits for killed worker processes to exit.
+_EXIT_WAIT_S = 10.0
 
 
 class _Proc:
@@ -853,6 +855,10 @@ class Scheduler:
         # the flight-recorder dump captured at SUSPECT time, queryable via
         # get_nodes(include_postmortems) after the node itself is gone.
         self._node_postmortems: "deque" = deque(maxlen=16)
+        # Local worker processes killed before shutdown and maybe still
+        # exiting (a CUDA worker takes a while to release its context):
+        # shutdown waits for them, so no process of the session outlives it.
+        self._exiting: List[_Proc] = []
         self._stopped = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._acceptors: List[threading.Thread] = []
@@ -1675,6 +1681,12 @@ class Scheduler:
                 wh.process.join(timeout=t)
                 if wh.process.is_alive():
                     wh.process.terminate()
+                    self._exiting.append(wh.process)
+        # Killed processes cannot refuse to die; wait (bounded) until they have.
+        deadline = time.time() + _EXIT_WAIT_S
+        for proc in self._exiting:
+            proc.join(timeout=max(0.0, deadline - time.time()))
+        self._exiting.clear()
 
     # ------------------------------------------------------------------ nodes
     def _cmd_add_node(self, payload) -> NodeID:
@@ -1918,6 +1930,8 @@ class Scheduler:
             node.workers.pop(wh.worker_id, None)
             if wh.worker_id in node.idle:
                 node.idle.remove(wh.worker_id)
+        if isinstance(wh.process, _Proc) and wh.process.is_alive():
+            self._exiting = [p for p in self._exiting if p.is_alive()] + [wh.process]
         self._workers_by_id.pop(wh.worker_id.hex(), None)
         if wh.conn is not None:
             self._conn_to_worker.pop(wh.conn, None)

@@ -7,6 +7,8 @@ from ray_tpu_torch.models.gpt import (
     num_params,
     train_flops_per_token,
 )
+from ray_tpu_torch.models.llama import LlamaConfig
+from ray_tpu_torch.models.resnet import ResNetConfig
 from ray_tpu_torch.models.training import (
     AdamW,
     TrainState,
@@ -19,6 +21,8 @@ from ray_tpu_torch.models.training import (
 __all__ = [
     "AdamW",
     "GPTConfig",
+    "LlamaConfig",
+    "ResNetConfig",
     "TrainState",
     "create_train_state",
     "default_optimizer",

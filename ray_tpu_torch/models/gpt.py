@@ -16,12 +16,10 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._private.accelerators.gpu import resolve_device
-from ray_tpu_torch.models.stack import apply_stack, causal_lm_loss, resolve_attention
-
-_MOE_NOT_PORTED = "mixture-of-experts (moe_experts > 0) is not ported yet: ROADMAP.md Queue 1 item 4"
+from ray_tpu_torch.models import moe
+from ray_tpu_torch.models.stack import apply_stack, causal_lm_loss, remat, resolve_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,13 +33,17 @@ class GPTConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     remat: bool = True
-    # None recomputes the whole block; "save_attn" checkpoints the qkv
-    # projection and the out-proj/MLP half but keeps attention out of the
-    # recompute, so the forward kernel runs once per layer per step and the
-    # backward reads the saved (q, k, v, o, lse); "dots" is not ported yet.
+    # None recomputes the whole block; "dots" saves the weight products'
+    # outputs across the block's checkpoint and recomputes the rest, attention
+    # included; "save_attn" checkpoints the qkv projection and the
+    # out-proj/MLP half but keeps attention out of the recompute, so the
+    # forward kernel runs once per layer per step and the backward reads the
+    # saved (q, k, v, o, lse).
     remat_policy: Optional[str] = "save_attn"
     attention: str = "auto"  # auto | flash | xla
     dropout: float = 0.0
+    # > 0 replaces every block's dense MLP with a Switch (top-1) MoE of this
+    # many experts (models/moe.py).
     moe_experts: int = 0
     moe_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
@@ -113,8 +115,6 @@ def init_params(config: GPTConfig, seed=0, device=None) -> Dict[str, Any]:
     """Random GPT-2 params (normal(0.02), residual projections scaled by
     1/sqrt(2L)) from ``seed`` (an int or a ``torch.Generator``), on ``device``
     (``None``: the GPU; raises when there is none)."""
-    if config.moe_experts:
-        raise NotImplementedError(_MOE_NOT_PORTED)
     device = resolve_device(device)
     d, L, V, F_ = config.d_model, config.n_layer, config.vocab_size, config.ff_dim
     nh, hd = config.n_head, config.head_dim
@@ -141,11 +141,16 @@ def init_params(config: GPTConfig, seed=0, device=None) -> Dict[str, Any]:
         "out_b": const((L, d), 0.0),
         "ln2_scale": const((L, d), 1.0),
         "ln2_bias": const((L, d), 0.0),
-        "fc_w": norm((L, d, F_), std),
-        "fc_b": const((L, F_), 0.0),
-        "proj_w": norm((L, F_, d), proj_std),
-        "proj_b": const((L, d), 0.0),
     }
+    if config.moe_experts:
+        blocks["moe"] = moe.init_moe_params(gen, L, d, F_, config.moe_experts, pd, device)
+    else:
+        blocks.update({
+            "fc_w": norm((L, d, F_), std),
+            "fc_b": const((L, F_), 0.0),
+            "proj_w": norm((L, F_, d), proj_std),
+            "proj_b": const((L, d), 0.0),
+        })
     return {
         "wte": norm((V, d), std),
         "wpe": norm((config.max_seq_len, d), std),
@@ -202,7 +207,8 @@ def _lm_head(x, w):
 
 
 def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=False):
-    """One transformer block. x: (B, S, D) in config.dtype.
+    """One transformer block. x: (B, S, D) in config.dtype. Returns (x, aux):
+    aux is the MoE load-balancing loss (None when dense).
 
     With sub_remat ("save_attn"), the qkv projection and the out-proj/MLP half
     are each checkpointed while the attention call between them is not: its
@@ -225,18 +231,24 @@ def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=
         o = o.transpose(1, 2).reshape(B, S, D) @ layer["out_w"].to(cdt).reshape(D, D)
         x = x + _dropout(o + layer["out_b"].to(cdt), config.dropout, s1)
         h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"]).to(cdt)
-        h = h @ layer["fc_w"].to(cdt) + layer["fc_b"].to(cdt)
-        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-        h = h @ layer["proj_w"].to(cdt) + layer["proj_b"].to(cdt)
-        return x + _dropout(h, config.dropout, s2)
+        aux = None
+        if config.moe_experts:
+            m = layer["moe"]
+            h, aux = moe.moe_mlp(h, m["router_w"], m["fc_w"], m["fc_b"], m["proj_w"],
+                                 m["proj_b"], capacity_factor=config.moe_capacity_factor)
+        else:
+            h = h @ layer["fc_w"].to(cdt) + layer["fc_b"].to(cdt)
+            h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+            h = h @ layer["proj_w"].to(cdt) + layer["proj_b"].to(cdt)
+        return x + _dropout(h, config.dropout, s2), aux
 
     if sub_remat:
-        q, k, v = checkpoint(qkv_part, x, layer, use_reentrant=False)
+        q, k, v = remat(qkv_part)(x, layer)
     else:
         q, k, v = qkv_part(x, layer)
     o = resolve_attention(q, k, v, config.attention, attention_fn)  # (B, nh, S, hd)
     if sub_remat:
-        return checkpoint(out_mlp_part, x, o, layer, use_reentrant=False)
+        return remat(out_mlp_part)(x, o, layer)
     return out_mlp_part(x, o, layer)
 
 
@@ -247,15 +259,11 @@ def forward(
     attention_fn: Optional[Callable] = None,
     dropout_seed: Optional[int] = None,
     mesh=None,
+    return_aux: bool = False,
 ):
-    """Returns logits (B, S, vocab) in float32. Pass ``dropout_seed`` to enable
-    dropout (training); omit it for deterministic eval. One device only."""
-    if config.moe_experts:
-        raise NotImplementedError(_MOE_NOT_PORTED)
-    if config.remat and config.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' is not ported yet: ROADMAP.md Queue 1 item 4"
-        )
+    """Returns logits (B, S, vocab) in float32 (with ``return_aux``, a
+    (logits, moe_aux_loss) pair). Pass ``dropout_seed`` to enable dropout
+    (training); omit it for deterministic eval. One device only."""
     B, S = tokens.shape
     cdt = config.dtype
     wte = params["wte"].to(cdt)
@@ -272,18 +280,16 @@ def forward(
         seed = fold_seed(layers_seed, idx) if use_dropout else None
         return _block(x, layer, config, attention_fn, seed, sub_remat=save_attn)
 
-    def remat_block_fn(x, layer, idx):
-        return checkpoint(block_fn, x, layer, idx, use_reentrant=False)
-
-    x = apply_stack(
+    x, moe_aux = apply_stack(
         params["blocks"],
         x,
-        remat_block_fn if config.remat and not save_attn else block_fn,
+        remat(block_fn, config.remat_policy) if config.remat and not save_attn else block_fn,
         n_layer=config.n_layer,
         mesh=mesh,
     )
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
-    return _lm_head(x.to(cdt), wte)
+    logits = _lm_head(x.to(cdt), wte)
+    return (logits, moe_aux) if return_aux else logits
 
 
 def loss_fn(
@@ -300,5 +306,9 @@ def loss_fn(
     else:
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits = forward(params, inputs, config, attention_fn, dropout_seed, mesh)
-    return causal_lm_loss(logits, targets)
+    logits, moe_aux = forward(params, inputs, config, attention_fn, dropout_seed, mesh,
+                              return_aux=True)
+    loss = causal_lm_loss(logits, targets)
+    if config.moe_experts:
+        loss = loss + config.moe_aux_weight * moe_aux
+    return loss

@@ -1,0 +1,250 @@
+"""Llama family in PyTorch: the counterpart of ``ray_tpu/models/llama.py``.
+
+RMSNorm, SwiGLU MLP, rotary position embeddings, grouped-query attention and
+an untied LM head, on the same scaffolding as ``models/gpt.py``: the JAX
+package's leaf names and stacked ``(L, ...)`` shapes, bf16 products over f32
+params, f32 norms and logits, attention through ``ops.flash_attention``.
+Grouped-query attention repeats each kv head to the query heads before the
+attention call, as the JAX block does; there is no GQA-native kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch._private.accelerators.gpu import resolve_device
+from ray_tpu_torch.models.gpt import _lm_head
+from ray_tpu_torch.models.stack import apply_stack, causal_lm_loss, remat, resolve_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    n_layer: int = 32
+    n_head: int = 32
+    n_kv_head: int = 32  # < n_head = grouped-query attention
+    d_model: int = 4096
+    d_ff: int = 11008  # SwiGLU hidden dim
+    max_seq_len: int = 4096
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    remat: bool = True
+    # As GPTConfig.remat_policy: "save_attn", "dots" or None.
+    remat_policy: Optional[str] = "save_attn"
+    attention: str = "auto"  # auto | flash | xla
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.n_head == 0
+        return self.d_model // self.n_head
+
+    @property
+    def group_size(self) -> int:
+        assert self.n_head % self.n_kv_head == 0
+        return self.n_head // self.n_kv_head
+
+    # ---- presets ----
+    # Keyword arguments override a preset's sizes too (the JAX presets refuse
+    # them), so a depth cut reads ``llama3_8b(n_layer=4)``.
+    @classmethod
+    def llama2_7b(cls, **kw):
+        return cls(**kw)
+
+    @classmethod
+    def llama2_13b(cls, **kw):
+        return cls(**{**dict(n_layer=40, n_head=40, n_kv_head=40, d_model=5120, d_ff=13824),
+                      **kw})
+
+    @classmethod
+    def llama3_8b(cls, **kw):
+        return cls(**{**dict(vocab_size=128256, n_layer=32, n_head=32, n_kv_head=8,
+                             d_model=4096, d_ff=14336, max_seq_len=8192, rope_theta=500000.0),
+                      **kw})
+
+    @classmethod
+    def nano(cls, **kw):
+        """Tiny GQA config for CPU tests (2 kv heads for 4 q heads)."""
+        return cls(**{**dict(vocab_size=256, max_seq_len=128, n_layer=2, n_head=4, n_kv_head=2,
+                             d_model=64, d_ff=128), **kw})
+
+
+def num_params(config: LlamaConfig) -> int:
+    d, L, V, F_ = config.d_model, config.n_layer, config.vocab_size, config.d_ff
+    kvd = config.n_kv_head * config.head_dim
+    per_layer = (
+        d * d            # wq
+        + 2 * d * kvd    # wk, wv
+        + d * d          # wo
+        + 2 * d * F_     # w_gate, w_up
+        + F_ * d         # w_down
+        + 2 * d          # 2 rmsnorm scales
+    )
+    return 2 * V * d + L * per_layer + d  # embed + untied head + final norm
+
+
+def train_flops_per_token(config: LlamaConfig, seq_len: int) -> float:
+    attn = 12 * config.n_layer * config.d_model * seq_len
+    return 6.0 * num_params(config) + attn
+
+
+# --------------------------------------------------------------------------- init
+def init_params(config: LlamaConfig, seed=0, device=None) -> Dict[str, Any]:
+    """Random Llama params (normal(0.02), output projections scaled by
+    1/sqrt(2L), norm scales 1) from ``seed`` (an int or a ``torch.Generator``),
+    on ``device`` (``None``: the GPU; raises when there is none)."""
+    device = resolve_device(device)
+    d, L, V, F_ = config.d_model, config.n_layer, config.vocab_size, config.d_ff
+    nh, nkv, hd = config.n_head, config.n_kv_head, config.head_dim
+    std = 0.02
+    out_std = std / math.sqrt(2 * L)
+    pd = config.param_dtype
+    if isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+
+    def norm(shape, s):
+        return (torch.randn(shape, generator=gen, device=gen.device) * s).to(device, pd)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=pd, device=device)
+
+    return {
+        "embed": norm((V, d), std),
+        "blocks": {
+            "attn_norm": ones((L, d)),
+            "wq": norm((L, d, nh, hd), std),
+            "wk": norm((L, d, nkv, hd), std),
+            "wv": norm((L, d, nkv, hd), std),
+            "wo": norm((L, nh, hd, d), out_std),
+            "mlp_norm": ones((L, d)),
+            "w_gate": norm((L, d, F_), std),
+            "w_up": norm((L, d, F_), std),
+            "w_down": norm((L, F_, d), out_std),
+        },
+        "final_norm": ones((d,)),
+        "lm_head": norm((V, d), std),
+    }
+
+
+# --------------------------------------------------------------------------- forward
+def _rms_norm(x, scale, eps):
+    xf = x.float()
+    rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return xf * rms * scale
+
+
+def rope_tables(seq_len: int, head_dim: int, theta: float, device=None):
+    """(S, head_dim/2) f32 cos and sin tables of positions 0..S-1, built once
+    per forward and shared by every layer."""
+    half = head_dim // 2
+    freqs = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32, device=device) / half)
+    angles = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _rope(x, cos, sin):
+    """Rotary embeddings on x (B, H, S, hd) with f32 tables (S, hd/2): the
+    rotation in f32, the result in x's dtype."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x2 * cos + x1 * sin
+    return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
+
+
+def _block(x, layer, config: LlamaConfig, attention_fn, cos, sin, sub_remat=False):
+    """One Llama block. x: (B, S, D). Returns (x, None): no aux loss.
+
+    With sub_remat ("save_attn"), the qkv/rope and wo/MLP halves are each
+    checkpointed while attention between them is not, as in gpt._block."""
+    cdt = config.dtype
+    B, S, D = x.shape
+    nh, nkv, hd, g = config.n_head, config.n_kv_head, config.head_dim, config.group_size
+
+    def proj(h, w, heads):  # "bsd,dnh->bnsh"
+        return (h @ w.to(cdt).reshape(D, heads * hd)).view(B, S, heads, hd).transpose(1, 2)
+
+    def qkv_part(x, layer):
+        h = _rms_norm(x, layer["attn_norm"], config.norm_eps).to(cdt)
+        q = _rope(proj(h, layer["wq"], nh), cos, sin)
+        k = _rope(proj(h, layer["wk"], nkv), cos, sin)
+        v = proj(h, layer["wv"], nkv)
+        if g > 1:
+            # GQA: each kv head serves `group_size` query heads (jnp.repeat).
+            k = torch.repeat_interleave(k, g, dim=1)
+            v = torch.repeat_interleave(v, g, dim=1)
+        # (B, nh, S, hd), contiguous: the attention kernels take no strides.
+        return q.contiguous(), k.contiguous(), v.contiguous()
+
+    def out_mlp_part(x, o, layer):
+        x = x + o.transpose(1, 2).reshape(B, S, D) @ layer["wo"].to(cdt).reshape(D, D)
+        h = _rms_norm(x, layer["mlp_norm"], config.norm_eps).to(cdt)
+        gate = h @ layer["w_gate"].to(cdt)
+        up = h @ layer["w_up"].to(cdt)
+        h = F.silu(gate) * up
+        return x + h @ layer["w_down"].to(cdt), None
+
+    if sub_remat:
+        q, k, v = remat(qkv_part)(x, layer)
+    else:
+        q, k, v = qkv_part(x, layer)
+    o = resolve_attention(q, k, v, config.attention, attention_fn)  # (B, nh, S, hd)
+    if sub_remat:
+        return remat(out_mlp_part)(x, o, layer)
+    return out_mlp_part(x, o, layer)
+
+
+def forward(
+    params: Dict[str, Any],
+    tokens,  # (B, S) int
+    config: LlamaConfig,
+    attention_fn: Optional[Callable] = None,
+    dropout_seed: Optional[int] = None,  # accepted for API parity; Llama uses no dropout
+    mesh=None,
+):
+    """Logits (B, S, vocab) in float32. One device only."""
+    del dropout_seed
+    cdt = config.dtype
+    S = tokens.shape[1]
+    x = F.embedding(tokens, params["embed"].to(cdt))
+    cos, sin = rope_tables(S, config.head_dim, config.rope_theta, x.device)
+    save_attn = config.remat and config.remat_policy == "save_attn"
+
+    def block_fn(x, layer, idx):
+        return _block(x, layer, config, attention_fn, cos, sin, sub_remat=save_attn)
+
+    x, _ = apply_stack(
+        params["blocks"],
+        x,
+        remat(block_fn, config.remat_policy) if config.remat and not save_attn else block_fn,
+        n_layer=config.n_layer,
+        mesh=mesh,
+    )
+    x = _rms_norm(x, params["final_norm"], config.norm_eps)
+    return _lm_head(x.to(cdt), params["lm_head"].to(cdt))
+
+
+def loss_fn(
+    params: Dict[str, Any],
+    batch: Dict[str, Any],  # {"tokens": (B, S+1)} or {"inputs", "targets"}
+    config: LlamaConfig,
+    attention_fn: Optional[Callable] = None,
+    dropout_seed: Optional[int] = None,
+    mesh=None,
+):
+    """Causal LM cross entropy (mean over tokens)."""
+    if "inputs" in batch:
+        inputs, targets = batch["inputs"], batch["targets"]
+    else:
+        tokens = batch["tokens"]
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits = forward(params, inputs, config, attention_fn, dropout_seed, mesh)
+    return causal_lm_loss(logits, targets)

@@ -1,0 +1,232 @@
+"""ResNet family in PyTorch: the counterpart of ``ray_tpu/models/resnet.py``.
+
+The JAX package's tree and layout: NHWC activations, HWIO conv kernels
+(permuted to PyTorch's OIHW at use), GroupNorm in f32, bf16 convolutions, f32
+logits; ``params["stage<i>"]`` is a list of block dicts. Convolutions and the
+stem's max-pool pad as XLA's ``padding="SAME"`` does, which is asymmetric for
+a stride-2 window on an even input (the 7x7/2 stem on 224 pads 2 before and 3
+after), so each pads explicitly and then runs unpadded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch._private.accelerators.gpu import resolve_device
+from ray_tpu_torch.models.gpt import _lm_head
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNetConfig:
+    num_classes: int = 1000
+    # Stage depths, e.g. (3, 4, 6, 3) for ResNet-50.
+    stage_sizes: Tuple[int, ...] = (3, 4, 6, 3)
+    bottleneck: bool = True
+    width: int = 64
+    groupnorm_groups: int = 32
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+
+    @property
+    def expansion(self) -> int:
+        return 4 if self.bottleneck else 1
+
+    # ---- presets ----
+    @classmethod
+    def resnet18(cls, **kw):
+        return cls(stage_sizes=(2, 2, 2, 2), bottleneck=False, **kw)
+
+    @classmethod
+    def resnet34(cls, **kw):
+        return cls(stage_sizes=(3, 4, 6, 3), bottleneck=False, **kw)
+
+    @classmethod
+    def resnet50(cls, **kw):
+        return cls(stage_sizes=(3, 4, 6, 3), bottleneck=True, **kw)
+
+    @classmethod
+    def resnet101(cls, **kw):
+        return cls(stage_sizes=(3, 4, 23, 3), bottleneck=True, **kw)
+
+    @classmethod
+    def nano(cls, **kw):
+        """Tiny config for CPU tests (CIFAR-shaped inputs)."""
+        kw.setdefault("num_classes", 10)
+        kw.setdefault("width", 8)
+        kw.setdefault("groupnorm_groups", 4)
+        return cls(stage_sizes=(1, 1), bottleneck=False, **kw)
+
+
+# --------------------------------------------------------------------------- init
+def _param_spec(config: ResNetConfig) -> Dict[str, Any]:
+    """The param tree with each leaf as (shape, init): "conv" (He-normal over
+    the kernel's fan-in), "head" (normal(0.01)), "ones" or "zeros"."""
+    w = config.width
+    spec: Dict[str, Any] = {
+        "stem": {"conv": ((7, 7, 3, w), "conv"), "gn_scale": ((w,), "ones"),
+                 "gn_bias": ((w,), "zeros")}
+    }
+    cin = w
+    for si, n_blocks in enumerate(config.stage_sizes):
+        ch = w * 2**si
+        cout = ch * config.expansion
+        blocks: List[Dict[str, Any]] = []
+        for _ in range(n_blocks):
+            if config.bottleneck:
+                b = {"conv1": ((1, 1, cin, ch), "conv"), "conv2": ((3, 3, ch, ch), "conv"),
+                     "conv3": ((1, 1, ch, cout), "conv")}
+                sizes = [ch, ch, cout]
+            else:
+                b = {"conv1": ((3, 3, cin, ch), "conv"), "conv2": ((3, 3, ch, cout), "conv")}
+                sizes = [ch, cout]
+            # The last norm's scale starts at zero: each block starts as identity.
+            for ni, c in enumerate(sizes):
+                b[f"gn{ni + 1}_scale"] = ((c,), "zeros" if ni == len(sizes) - 1 else "ones")
+                b[f"gn{ni + 1}_bias"] = ((c,), "zeros")
+            if cin != cout:
+                # Every stride-2 block too: stage channels double.
+                b["proj"] = ((1, 1, cin, cout), "conv")
+            blocks.append(b)
+            cin = cout
+        spec[f"stage{si}"] = blocks
+    spec["head"] = {"w": ((cin, config.num_classes), "head"), "b": ((config.num_classes,), "zeros")}
+    return spec
+
+
+def _spec_map(fn, spec):
+    if isinstance(spec, dict):
+        return {k: _spec_map(fn, v) for k, v in spec.items()}
+    if isinstance(spec, list):
+        return [_spec_map(fn, v) for v in spec]
+    return fn(*spec)
+
+
+def init_params(config: ResNetConfig, seed=0, device=None) -> Dict[str, Any]:
+    """Random ResNet params from ``seed`` (an int or a ``torch.Generator``) on
+    ``device`` (``None``: the GPU; raises when there is none)."""
+    device = resolve_device(device)
+    pd = config.param_dtype
+    if isinstance(seed, torch.Generator):
+        gen = seed
+    else:
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+
+    def make(shape, init):
+        if init in ("ones", "zeros"):
+            return torch.full(shape, 1.0 if init == "ones" else 0.0, dtype=pd, device=device)
+        std = math.sqrt(2.0 / (shape[0] * shape[1] * shape[2])) if init == "conv" else 0.01
+        return (torch.randn(shape, generator=gen, device=gen.device) * std).to(device, pd)
+
+    return _spec_map(make, _param_spec(config))
+
+
+def num_params(config: ResNetConfig) -> int:
+    counts = []
+    _spec_map(lambda shape, init: counts.append(math.prod(shape)), _param_spec(config))
+    return sum(counts)
+
+
+# --------------------------------------------------------------------------- forward
+def _group_norm(x, scale, bias, groups, eps=1e-5):
+    """GroupNorm of x (N, H, W, C) in f32, over each group's channels and all
+    positions; ``groups`` falls back to the largest divisor of C below it."""
+    C = x.shape[-1]
+    g = min(groups, C)
+    while C % g:
+        g -= 1
+    # F.group_norm takes the JAX package's mean and variance over (H, W, C/g)
+    # and the same per-channel scale and bias, and saves only its input and
+    # the statistics for the backward.
+    return F.group_norm(x.float().permute(0, 3, 1, 2), g, scale, bias, eps).permute(0, 2, 3, 1)
+
+
+def _same_pads(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's "SAME" padding of one spatial dim: (before, after)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _pad_same(x, k: int, stride: int, value: float = 0.0):
+    """Pad x (N, H, W, C) as "SAME" would for a k x k window at ``stride``."""
+    (ht, hb), (wl, wr) = _same_pads(x.shape[1], k, stride), _same_pads(x.shape[2], k, stride)
+    if ht or hb or wl or wr:
+        x = F.pad(x, (0, 0, wl, wr, ht, hb), value=value)
+    return x
+
+
+def _conv(x, w, stride=1, cdt=None):
+    """Convolution of x (N, H, W, Cin) with w (kh, kw, Cin, Cout), "SAME"
+    padding. The products run in ``cdt``; the output is in ``cdt``, where the
+    JAX package keeps it f32 (ROADMAP.md Queue 3)."""
+    x = _pad_same(x.to(cdt), w.shape[0], stride)
+    w = w.to(cdt).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+def _block_fwd(x, b, config: ResNetConfig, stride: int):
+    cdt = config.dtype
+    g = config.groupnorm_groups
+
+    def gn_relu(h, i):  # relu after rounding to cdt: the same values, half the saved bytes
+        return F.relu(_group_norm(h, b[f"gn{i}_scale"], b[f"gn{i}_bias"], g).to(cdt))
+
+    if config.bottleneck:
+        h = gn_relu(_conv(x, b["conv1"], 1, cdt), 1)
+        h = gn_relu(_conv(h, b["conv2"], stride, cdt), 2)
+        h = _group_norm(_conv(h, b["conv3"], 1, cdt), b["gn3_scale"], b["gn3_bias"], g)
+    else:
+        h = gn_relu(_conv(x, b["conv1"], stride, cdt), 1)
+        h = _group_norm(_conv(h, b["conv2"], 1, cdt), b["gn2_scale"], b["gn2_bias"], g)
+    if "proj" in b:
+        residual = _conv(x, b["proj"], stride, cdt)
+    elif stride != 1:
+        raise ValueError("a stride-2 block without a projection kernel")
+    else:
+        residual = x
+    return F.relu((h + residual.float()).to(cdt))
+
+
+def forward(
+    params: Dict[str, Any],
+    images,  # (B, H, W, 3) float
+    config: ResNetConfig,
+    attention_fn=None,  # API parity with the LM families (unused)
+    dropout_seed=None,
+    mesh=None,
+):
+    """Class logits (B, num_classes) in float32."""
+    del attention_fn, dropout_seed, mesh
+    cdt = config.dtype
+    stem = params["stem"]
+    x = _conv(images, stem["conv"], 2, cdt)
+    x = F.relu(_group_norm(x, stem["gn_scale"], stem["gn_bias"], config.groupnorm_groups).to(cdt))
+    # 3x3 max-pool, stride 2, "SAME" with -inf padding.
+    x = _pad_same(x, 3, 2, value=-math.inf)
+    x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
+    for si in range(len(config.stage_sizes)):
+        for bi, b in enumerate(params[f"stage{si}"]):
+            x = _block_fwd(x, b, config, 2 if (si > 0 and bi == 0) else 1)
+    x = x.float().mean(dim=(1, 2))  # global average pool
+    return _lm_head(x.to(cdt), params["head"]["w"].to(cdt).t()) + params["head"]["b"].float()
+
+
+def loss_fn(
+    params: Dict[str, Any],
+    batch: Dict[str, Any],  # {"images": (B, H, W, 3), "labels": (B,)}
+    config: ResNetConfig,
+    attention_fn=None,
+    dropout_seed=None,
+    mesh=None,
+):
+    """Softmax cross entropy over classes (mean over the batch)."""
+    logits = forward(params, batch["images"], config, attention_fn, dropout_seed, mesh)
+    lse = torch.logsumexp(logits, dim=-1)
+    at = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    return (lse - at).mean()

@@ -18,31 +18,38 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._private.accelerators.gpu import resolve_device
-from ray_tpu_torch.models import gpt
+from ray_tpu_torch.models import gpt, llama, resnet
 from ray_tpu_torch.models.stack import check_single_device
 
 _DROPOUT_BASE_SEED = 0x5EED
 
 
 def model_for(config):
-    """The model module for a config; the port has GPT-2 only so far."""
+    """The model module of a config (gpt, llama, resnet), so one TrainState
+    and step factory serves the whole zoo."""
+    if isinstance(config, llama.LlamaConfig):
+        return llama
+    if isinstance(config, resnet.ResNetConfig):
+        return resnet
     if isinstance(config, gpt.GPTConfig):
         return gpt
-    raise NotImplementedError(
-        f"{type(config).__name__} (Llama, ResNet) is not ported yet: ROADMAP.md Queue 1 item 4"
-    )
+    raise TypeError(f"no model for a {type(config).__name__}")
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a nested dict, in insertion order."""
+    """The tensors of nested dicts and lists, in insertion order."""
     if isinstance(tree, dict):
-        return [leaf for sub in tree.values() for leaf in tree_leaves(sub)]
-    return [tree]
+        tree = tree.values()
+    elif not isinstance(tree, list):
+        return [tree]
+    return [leaf for sub in tree for leaf in tree_leaves(sub)]
 
 
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 

@@ -62,3 +62,90 @@ def test_trainer_cleanup_check_sees_only_this_runs_workers():
     while any(chip_smoke.pid_alive(p) for p in pids) and time.time() < deadline:
         time.sleep(0.05)
     assert not any(chip_smoke.pid_alive(p) for p in pids)
+
+
+def test_attention_bounds_at_the_llama_shape():
+    # bh 32, S 8192, d 128, causal: forward 2 products of 2 * d operations per
+    # kept (query, key) pair, 0.55 TFLOP, 0.556 ms at 989 TFLOP/s, against
+    # q, k, v, o (268 MB) and the lse, 0.08 ms at 3.35 TB/s; backward 5
+    # products, 1.37 TFLOP, 1.39 ms.
+    (fwd_ms, fwd_by), (bwd_ms, bwd_by) = chip_smoke.attention_bounds(32, 8192, 128)
+    pairs = 32 * 8192 * 8193 / 2
+    assert fwd_ms == pytest.approx(4 * 128 * pairs / 989e12 * 1e3) == pytest.approx(0.5559, abs=1e-4)
+    assert bwd_ms == pytest.approx(1.3898, abs=1e-4)
+    assert fwd_by == bwd_by == "operations"
+    # GPT-2 small's shape: the forward is bound by its bytes (PERF.md).
+    (fwd_ms, fwd_by), (bwd_ms, bwd_by) = chip_smoke.attention_bounds(192, 1024, 64)
+    assert (round(fwd_ms, 4), fwd_by) == (0.0303, "bytes")
+    assert (round(bwd_ms, 4), bwd_by) == (0.0652, "operations")
+
+
+def _kernel(**over):
+    k = {"name": "flash_fwd", "route": "cuda", "source": "s.cu", "replaces": "f.py:59",
+         "launches": 156, "max_abs_err": 0.01, "ms": 0.09, "plain_ms": 5.0, "bound_ms": 0.03,
+         "bound_by": "bytes", "library_ms": 0.08,
+         "launches_per_path": {"main_path": 156, "trainer": 156, "llama": 32, "moe": 96}}
+    k.update(over)
+    return k
+
+
+PATHS = ["main_path", "trainer", "llama", "moe"]
+
+
+def test_kernels_line_check_passes_a_whole_line():
+    line = {"kernels": [_kernel(), _kernel(name="flash_bwd", bound_by="operations",
+                                           library_ms=None)]}
+    assert chip_smoke.check_kernels_line(line, PATHS) == []
+
+
+@pytest.mark.parametrize("over,problem", [
+    ({"library_ms": "drop"}, "flash_fwd: no library_ms"),
+    ({"route": "library"}, "flash_fwd: route 'library'"),
+    ({"bound_by": "time"}, "flash_fwd: bound_by 'time'"),
+    ({"ms": 0}, "flash_fwd: ms 0"),
+    ({"launches_per_path": {"main_path": 156, "trainer": 156, "llama": 0, "moe": 96}},
+     "flash_fwd: no launch on llama"),
+    ({"launches_per_path": {"main_path": 156, "trainer": 156, "llama": 32}},
+     "flash_fwd: no launch on moe"),
+])
+def test_kernels_line_check_names_what_is_missing(over, problem):
+    k = _kernel(**over)
+    if over.get("library_ms") == "drop":
+        del k["library_ms"]
+    assert problem in chip_smoke.check_kernels_line({"kernels": [k]}, PATHS)
+
+
+def test_llama_init_loss_expected():
+    # ln 128256 plus half the logits' variance, 0.02^2 * 4096.
+    import math
+
+    assert chip_smoke.init_loss_expected(128256, 4096) == pytest.approx(
+        math.log(128256) + 0.8192)
+
+
+def test_shutdown_waits_for_worker_processes_still_exiting():
+    # The trainer phase kills its worker actor at the end of fit() and checks
+    # right after shutdown() that the process is gone. A CUDA worker takes a
+    # while to exit after its kill (a CPU one dies at once), so shutdown()
+    # waits for the processes it killed: here one that takes a second.
+    import subprocess
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private import scheduler, worker
+
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        @ray_tpu_torch.remote
+        class Pid:
+            def pid(self):
+                return os.getpid()
+
+        actor = Pid.remote()
+        pid = ray_tpu_torch.get(actor.pid.remote())
+        slow = scheduler._Proc(subprocess.Popen([sys.executable, "-c", "import time; time.sleep(1)"]))
+        worker.global_worker.context.scheduler._exiting.append(slow)
+        ray_tpu_torch.kill(actor)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert not slow.is_alive()
+    assert not chip_smoke.pid_alive(pid)

@@ -39,12 +39,13 @@ def _modules():
 
 
 def test_importing_every_module_loads_no_jax_and_no_ray_tpu():
+    # Nor transformers: the HF import reads a model's config and state dict.
     code = (
         "import importlib, sys\n"
         f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'ray_tpu' or m.startswith('ray_tpu.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'ray_tpu', 'transformers'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -56,7 +57,8 @@ def test_importing_every_module_loads_no_jax_and_no_ray_tpu():
 
 
 def test_sources_name_no_jax_and_no_ray_tpu():
-    banned = re.compile(r"^\s*(import jax|from jax|import ray_tpu(?!_torch)|from ray_tpu(?!_torch))", re.M)
+    banned = re.compile(r"^\s*(import jax|from jax|import ray_tpu(?!_torch)|from ray_tpu(?!_torch)"
+                        r"|import transformers|from transformers)", re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG_DIR):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
@@ -125,23 +127,22 @@ def test_build_is_keyed_by_source_hash():
 
 
 def test_what_is_not_ported_raises():
+    # MoE and the "dots" remat policy are ported now; meshes are not.
     cfg = GPTConfig.nano(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(GPTConfig.nano(moe_experts=2), 0, device="cpu")
-    params = init_params(cfg, 0, device="cpu")
     tokens = {"tokens": torch.zeros((1, 9), dtype=torch.int32)}
     from ray_tpu_torch.models.gpt import loss_fn
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(params, tokens, GPTConfig.nano(dtype=torch.float32, remat_policy="dots"))
+    for zoo_cfg in (GPTConfig.nano(dtype=torch.float32, moe_experts=2),
+                    GPTConfig.nano(dtype=torch.float32, remat_policy="dots")):
+        assert torch.isfinite(loss_fn(init_params(zoo_cfg, 0, device="cpu"), tokens, zoo_cfg))
 
     class Mesh:  # the torch DeviceMesh interface the check reads
         def size(self):
             return 4
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
         make_train_step(cfg, default_optimizer(), mesh=Mesh())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="no model"):
         make_train_step(object(), default_optimizer())
 
 

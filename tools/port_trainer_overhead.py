@@ -42,7 +42,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
-KEYS = ("step_ms_median", "tokens_per_s", "step_ms_timed")
+KEYS = ("step_ms_median", "items_per_s", "step_ms_timed")
 
 
 def workload():
