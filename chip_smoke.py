@@ -52,7 +52,18 @@ exits non-zero and prints no result.
    4 steps, the forward kernel launched twice per layer per step (once in
    the backward's recompute), the first loss and grad norm against the main
    path's.
-9. a ``kernels`` line (launches per path: main_path, trainer, llama, moe,
+9. RLlib (``ray_tpu_torch.rllib``), on a numpy ``CartPole-v1`` (no
+   gymnasium on this path): ``rl_learner_check``, a ``TorchLearner`` on the
+   card against one on the CPU from the same weights and minibatches, 10
+   updates each of PPO's, DQN's (double Q) and C51's loss, and each one's
+   host ms, device busy time, kernels and copies per update; then on one
+   runtime (``init(num_cpus=4)``) ``ppo`` (12 ``train()`` iterations of the
+   JAX test's configuration, learner on the card, two runners on CPU actors;
+   best return > first + 30), ``dqn`` (until best return >= 60, at most 25
+   iterations) and ``ppo_two_learners`` (two remote learners holding 0.5 GPU
+   each, weights equal after each round), and ``rl_shutdown`` (nothing left
+   after ``shutdown()``, no attention kernel launched by these phases).
+10. a ``kernels`` line (launches per path: main_path, trainer, llama, moe,
    remat_dots; times at the Llama shape too), checked for the keys the contract names,
    then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -64,6 +75,7 @@ from __future__ import annotations
 
 import dataclasses
 import glob
+import importlib.util
 import json
 import math
 import os
@@ -72,6 +84,8 @@ import subprocess
 import sys
 import threading
 import time
+
+import numpy as np
 
 B, S = 16, 1024
 WARMUP, TIMED, PROFILED = 3, 10, 2
@@ -235,7 +249,6 @@ def build_workload():
     """The main path's model, optimizer, state and batch: GPT-2 small at full
     width and depth (bf16 compute, save_attn remat), AdamW, weights from seed
     0 and one batch from numpy seed 0, on ``default_device()``."""
-    import numpy as np
     import torch
 
     from ray_tpu_torch.models import (
@@ -460,7 +473,6 @@ def first_step_reference(cfg, batch, model, extra=None):
 
 def phase_llama(smi):
     """Llama 3 8B at full width, depth cut to 4 layers, B 1 x S 8192."""
-    import numpy as np
     import torch
 
     from ray_tpu_torch.models import LlamaConfig, create_train_state, default_optimizer, shard_batch
@@ -507,7 +519,6 @@ def phase_llama(smi):
 
 def phase_moe(smi):
     """GPT-2 small with 8 Switch experts in every block, B 16 x S 1024."""
-    import numpy as np
     import torch
 
     from ray_tpu_torch.models import GPTConfig, create_train_state, default_optimizer, shard_batch
@@ -569,7 +580,6 @@ def phase_moe(smi):
 def phase_resnet50(smi):
     """ResNet-50 on B 128 random 224 x 224 images; no attention, no kernel of
     the port on its path."""
-    import numpy as np
     import torch
 
     from ray_tpu_torch.models import ResNetConfig, create_train_state, default_optimizer, shard_batch
@@ -649,6 +659,402 @@ def check_launches(path, run, n_layer):
     for i, per_step in enumerate(run["launches_per_step"]):
         require(len(per_step) == 2 and all(n == n_layer for n in per_step.values()),
                 f"{path} step {i}: kernel launches {per_step}, expected {n_layer} each")
+
+
+# ---------------------------------------------------------------------------- RLlib
+# The RL phases' CartPole: gymnasium's CartPole-v1 (envs/classic_control/
+# cartpole.py: dynamics, thresholds, reset draw) under its 500-step TimeLimit,
+# in numpy, so the path needs no gymnasium.
+CARTPOLE_MAX_STEPS = 500
+# PPO and DQN as the JAX package's tests train CartPole
+# (tests/test_rllib.py:23-42 and :267-289) and their bars there.
+PPO_ITERS, PPO_GAIN = 12, 30.0
+DQN_MAX_ITERS, DQN_BAR = 25, 60.0
+TWO_LEARNER_ITERS = 2
+# rl_learner_check: a learner on the card against one on the CPU, from the
+# same weights and minibatches, full f32 (no TF32). Losses, aux and grad norm
+# per update: |a - b| <= RL_TOL * max(|b|, 1) (relative, with a floor of 1
+# for values near 0, whose f32 sums of O(1) terms carry absolute rounding
+# error); params after the updates: absolute.
+RL_UPDATES, RL_TOL, RL_PARAM_TOL = 10, 1e-5, 1e-5
+RL_PROFILED = 10
+
+
+class DiscreteSpace:
+    """The attributes of a gymnasium ``Discrete`` space the port reads."""
+
+    def __init__(self, n):
+        self.n, self.shape, self.dtype = n, (), np.int64
+
+
+class BoxSpace:
+    """The attributes of a gymnasium ``Box`` space the port reads."""
+
+    def __init__(self, low, high):
+        self.low, self.high = low, high
+        self.shape, self.dtype = low.shape, low.dtype
+
+
+class CartPole:
+    """gymnasium's ``CartPole-v1`` (``gym.make("CartPole-v1")``) in numpy:
+    Euler steps of the cart-pole equations, termination past 2.4 m or 12
+    degrees, reward 1 per step, truncation at 500 steps, and the reset state
+    drawn uniform in [-0.05, 0.05) from ``np.random.default_rng(seed)``, the
+    generator ``gymnasium.utils.seeding.np_random`` builds."""
+
+    gravity, masscart, masspole, length, force_mag, tau = 9.8, 1.0, 0.1, 0.5, 10.0, 0.02
+    theta_threshold_radians, x_threshold = 12 * 2 * math.pi / 360, 2.4
+
+    def __init__(self, max_episode_steps=CARTPOLE_MAX_STEPS):
+        self.max_episode_steps = max_episode_steps
+        self.total_mass = self.masspole + self.masscart
+        self.polemass_length = self.masspole * self.length
+        high = np.array([self.x_threshold * 2, np.inf, self.theta_threshold_radians * 2, np.inf],
+                        dtype=np.float32)
+        self.observation_space = BoxSpace(-high, high)
+        self.action_space = DiscreteSpace(2)
+        self.np_random, self.state, self.elapsed = None, None, 0
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None or self.np_random is None:
+            self.np_random = np.random.default_rng(seed)
+        self.state = self.np_random.uniform(low=-0.05, high=0.05, size=(4,))
+        self.elapsed = 0
+        return np.array(self.state, dtype=np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        force = self.force_mag if action == 1 else -self.force_mag
+        costheta, sintheta = np.cos(theta), np.sin(theta)
+        temp = (force + self.polemass_length * np.square(theta_dot) * sintheta) / self.total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole * np.square(costheta) / self.total_mass))
+        xacc = temp - self.polemass_length * thetaacc * costheta / self.total_mass
+        x = x + self.tau * x_dot
+        x_dot = x_dot + self.tau * xacc
+        theta = theta + self.tau * theta_dot
+        theta_dot = theta_dot + self.tau * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                          or theta < -self.theta_threshold_radians
+                          or theta > self.theta_threshold_radians)
+        self.elapsed += 1
+        truncated = self.elapsed >= self.max_episode_steps
+        return np.array(self.state, dtype=np.float32), 1.0, terminated, truncated, {}
+
+    def close(self):
+        pass
+
+
+def ppo_config():
+    """PPO as tests/test_rllib.py:23-42 trains it, on the numpy CartPole."""
+    from ray_tpu_torch.rllib import PPOConfig
+
+    return (PPOConfig().environment(CartPole)
+            .env_runners(num_env_runners=2, num_envs_per_runner=4, rollout_fragment_length=64)
+            .training(lr=3e-4, gamma=0.99, lambda_=0.95, minibatch_size=128, num_epochs=4,
+                      entropy_coeff=0.01))
+
+
+def dqn_config():
+    """DQN as tests/test_rllib.py:267-289 trains it, on the numpy CartPole."""
+    from ray_tpu_torch.rllib import DQNConfig
+
+    return (DQNConfig().environment(CartPole)
+            .env_runners(num_env_runners=2, num_envs_per_runner=4, rollout_fragment_length=64)
+            .training(lr=1e-3, gamma=0.99, learning_starts=500, train_batch_size=64,
+                      updates_per_iteration=48, target_network_update_freq=100,
+                      epsilon_decay_steps=6000))
+
+
+def rl_learner_inputs(kind, seed=0):
+    """One loss's module, loss function, optimizer, weights, extra state and
+    RL_UPDATES minibatches, from numpy seed ``seed``, at the shapes PPO and DQN
+    train CartPole with (obs 4, 2 actions; PPO's minibatch 128 rows, DQN's
+    train batch 64). ``kind``: "ppo", "dqn" (double Q) or "c51" (51 atoms)."""
+    from ray_tpu_torch.models import params_to_numpy
+    from ray_tpu_torch.rllib.algorithms.dqn import make_c51_loss, make_dqn_loss
+    from ray_tpu_torch.rllib.algorithms.ppo import make_ppo_loss
+    from ray_tpu_torch.rllib.core.distributional import DistributionalQModule
+    from ray_tpu_torch.rllib.core.learner import adam
+    from ray_tpu_torch.rllib.core.rl_module import MLPModule, QMLPModule
+
+    rng = np.random.default_rng(seed)
+    obs_dim, n_act = 4, 2
+    if kind == "ppo":
+        cfg = ppo_config()
+        module, loss, rows = MLPModule(obs_dim, n_act), make_ppo_loss(cfg), cfg.minibatch_size
+    else:
+        cfg = dqn_config()
+        if kind == "c51":
+            cfg.training(num_atoms=51)
+            module, loss = DistributionalQModule(obs_dim, n_act, num_atoms=51, dueling=False), \
+                make_c51_loss(cfg)
+        else:
+            module, loss = QMLPModule(obs_dim, n_act), make_dqn_loss(cfg)
+        rows = cfg.train_batch_size
+    weights = params_to_numpy(module.init(seed, device="cpu"))
+    extra = None if kind == "ppo" else {"target_params": weights}
+
+    def batch():
+        b = {"obs": rng.standard_normal((rows, obs_dim)).astype(np.float32),
+             "actions": rng.integers(0, n_act, rows)}
+        if kind == "ppo":
+            b.update(logp=np.log(rng.uniform(0.3, 0.7, rows)).astype(np.float32),
+                     behavior_logits=(0.1 * rng.standard_normal((rows, n_act))).astype(np.float32),
+                     advantages=rng.standard_normal(rows).astype(np.float32),
+                     value_targets=rng.standard_normal(rows).astype(np.float32),
+                     kl_coeff=np.full(rows, cfg.kl_coeff, np.float32))
+        else:
+            b.update(rewards=np.ones(rows, np.float32),
+                     next_obs=rng.standard_normal((rows, obs_dim)).astype(np.float32),
+                     terminateds=(rng.random(rows) < 0.05).astype(np.float32),
+                     loss_weight=np.ones(rows, np.float32))
+        return b
+
+    return module, loss, adam(cfg.lr, cfg.grad_clip), weights, extra, [batch() for _ in range(RL_UPDATES)]
+
+
+def rl_rel_err(a, b):
+    """max |a - b| / max(max |b|, 1), for floats and arrays."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1.0))
+
+
+def profile_updates(learner, batches):
+    """``learner.update`` on each batch under ``torch.profiler``: per update,
+    the device's busy time, the kernels launched, and the host-to-device and
+    device-to-host copies, beside the untraced wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            learner.update(b)
+        torch.cuda.synchronize()
+    n = len(batches)
+    busy_us, kernels, h2d, d2h = 0.0, 0, 0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        busy_us += e.self_device_time_total
+        if e.key.startswith("Memcpy HtoD"):
+            h2d += e.count
+        elif e.key.startswith("Memcpy DtoH"):
+            d2h += e.count
+        elif not e.key.startswith(("Memcpy", "Memset")):
+            kernels += e.count
+    return {"device_busy_us_per_update": busy_us / n, "kernels_per_update": kernels / n,
+            "h2d_copies_per_update": h2d / n, "d2h_copies_per_update": d2h / n,
+            "h2d_bytes_per_update": sum(v.nbytes for b in batches for v in b.values()) / n}
+
+
+def phase_rl_learner_check(smi, device="cuda"):
+    """A TorchLearner on ``device`` against one on the CPU, from the same
+    numpy weights and minibatches: RL_UPDATES updates of PPO's loss, DQN's
+    (double Q) and C51's (51 atoms), each update's losses, aux and grad norm
+    compared, the params after the last; then RL_PROFILED more updates on the
+    card under the profiler."""
+    from ray_tpu_torch.models.training import tree_leaves
+    from ray_tpu_torch.rllib import TorchLearner
+
+    lines = []
+    for kind in ("ppo", "dqn", "c51"):
+        module, loss, opt, weights, extra, batches = rl_learner_inputs(kind)
+        learner, ref_learner = (TorchLearner(module, loss, optimizer=opt, device=dev)
+                                for dev in (device, "cpu"))
+        for lr in (learner, ref_learner):
+            lr.set_weights(weights)
+            lr.set_extra(extra)
+        host_ms, errs = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            got = learner.update(b)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            ref = ref_learner.update(b)
+            errs.append({k: rl_rel_err(got[k], ref[k]) for k in ref})
+        param_err = max(float(np.max(np.abs(a - b))) for a, b in
+                        zip(tree_leaves(learner.get_weights()), tree_leaves(ref_learner.get_weights())))
+        worst = {k: max(e[k] for e in errs) for k in errs[0]}
+        line = {"phase": "rl_learner_check", "loss": kind, "device": device,
+                "placement": learner.placement(), "updates": len(batches),
+                "rows": len(batches[0]["obs"]), "max_rel_err_per_key": worst,
+                "param_max_abs_err": param_err, "tol_rel": RL_TOL, "tol_param_abs": RL_PARAM_TOL,
+                "host_ms_per_update": host_ms, "host_ms_per_update_median": statistics.median(host_ms),
+                "card": smi}
+        if device == "cuda":
+            more = batches[:RL_PROFILED]
+            t0 = time.perf_counter()
+            for b in more:
+                learner.update(b)
+            wall_us = (time.perf_counter() - t0) * 1e6 / len(more)
+            line["profile"] = profile_updates(learner, more)
+            line["profile"]["host_wall_us_per_update"] = wall_us
+            line["profile"]["device_idle_share"] = (
+                1 - line["profile"]["device_busy_us_per_update"] / wall_us)
+        lines.append(line)
+        emit(line)
+        require(line["placement"]["device"].startswith(device),
+                f"rl_learner_check {kind}: params on {line['placement']['device']}")
+        require(max(worst.values()) <= RL_TOL, f"rl_learner_check {kind}: {worst}")
+        require(param_err <= RL_PARAM_TOL, f"rl_learner_check {kind}: params {param_err}")
+    return lines
+
+
+def rl_placement(algo, device):
+    """The learners' and runners' placement, checked: every learner's params
+    on ``device``, every runner a CPU process that sees no GPU."""
+    import ray_tpu_torch
+
+    learners = algo.learner_group.placement()
+    runners = ray_tpu_torch.get([r.placement.remote() for r in algo.env_runners])
+    require(all(p["device"].startswith(device) for p in learners), f"learners on {learners}")
+    require(all(r["cuda_visible_devices"] == "" and r["device"] == "cpu" for r in runners),
+            f"runners {runners}: expected CUDA_VISIBLE_DEVICES '' and the CPU")
+    return {"learners": learners, "runners": runners}
+
+
+def rl_iteration(result, steps):
+    """One train() result as the RL phases print it."""
+    learn_s, updates = result.get("learn_time_s"), result.get("num_learner_updates", 0)
+    return {"iteration": result["training_iteration"], "return": result.get("episode_return_mean"),
+            "total_loss": result.get("total_loss"), "sample_s": result["sample_time_s"],
+            "learn_s": learn_s, "iteration_s": result["time_this_iter_s"],
+            "env_steps_per_s": steps / result["sample_time_s"],
+            "updates": updates, "updates_per_s": updates / learn_s if learn_s else None}
+
+
+def phase_ppo(smi, device="cuda"):
+    """PPO on the numpy CartPole through ``PPOConfig().build().train()``:
+    the learner on ``device``, two runners on CPU actors, PPO_ITERS
+    iterations; the JAX test's bar, best return > first + PPO_GAIN."""
+    import ray_tpu_torch
+
+    cfg = ppo_config()
+    steps = cfg.num_env_runners * cfg.num_envs_per_runner * cfg.rollout_fragment_length
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    build_s = time.perf_counter() - t0
+    placement = rl_placement(algo, device)
+    rows = [rl_iteration(algo.train(), steps) for _ in range(PPO_ITERS)]
+    pids = runtime_worker_pids()
+    algo.stop()
+    returns = [r["return"] for r in rows if r["return"] is not None]
+    line = {"phase": "ppo", "env": "CartPole-v1 (numpy)", "iterations": PPO_ITERS,
+            "env_steps_per_iteration": steps, "minibatch_size": cfg.minibatch_size,
+            "num_epochs": cfg.num_epochs, "build_s": build_s, "placement": placement,
+            "per_iteration": rows, "first_return": returns[0] if returns else None,
+            "best_return": max(returns) if returns else None,
+            "gymnasium_installed": importlib.util.find_spec("gymnasium") is not None,
+            "node_resources": ray_tpu_torch.cluster_resources(), "worker_pids": sorted(pids),
+            "card": smi}
+    emit(line)
+    require(returns, "ppo: no episode finished")
+    require(all(math.isfinite(r["total_loss"]) for r in rows), f"ppo: losses {rows}")
+    require(line["best_return"] > line["first_return"] + PPO_GAIN,
+            f"ppo: no learning, first {line['first_return']} best {line['best_return']}")
+    return line
+
+
+def phase_dqn(smi, device="cuda"):
+    """DQN on the numpy CartPole through ``DQNConfig().build().train()``
+    until the best return reaches DQN_BAR or DQN_MAX_ITERS iterations."""
+    cfg = dqn_config()
+    steps = cfg.num_env_runners * cfg.num_envs_per_runner * cfg.rollout_fragment_length
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    build_s = time.perf_counter() - t0
+    placement = rl_placement(algo, device)
+    rows, best = [], 0.0
+    for _ in range(DQN_MAX_ITERS):
+        result = algo.train()
+        rows.append(dict(rl_iteration(result, steps), epsilon=result["epsilon"],
+                         buffer_size=result["buffer_size"]))
+        best = max(best, result.get("episode_return_mean", 0.0))
+        if best >= DQN_BAR:
+            break
+    pids = runtime_worker_pids()
+    algo.stop()
+    line = {"phase": "dqn", "env": "CartPole-v1 (numpy)", "iterations": len(rows),
+            "env_steps_per_iteration": steps, "train_batch_size": cfg.train_batch_size,
+            "updates_per_iteration": cfg.updates_per_iteration, "build_s": build_s,
+            "placement": placement, "per_iteration": rows, "best_return": best,
+            "worker_pids": sorted(pids), "card": smi}
+    emit(line)
+    trained = [r["total_loss"] for r in rows if r["total_loss"] is not None]
+    require(trained and all(math.isfinite(x) for x in trained), f"dqn: losses {trained}")
+    require(best >= DQN_BAR, f"dqn: best return {best} < {DQN_BAR}")
+    return line
+
+
+def phase_ppo_two_learners(smi):
+    """PPO with two remote learners holding half the GPU each, for
+    TWO_LEARNER_ITERS iterations; both learners' weights equal after each."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models.training import tree_leaves
+
+    algo = ppo_config().learners(num_learners=2, num_gpus_per_learner=0.5).build()
+    placement = rl_placement(algo, "cuda")
+    gpu_total = ray_tpu_torch.cluster_resources().get("GPU")
+    gpu_free = ray_tpu_torch.available_resources().get("GPU")
+    rows, equal = [], []
+    for _ in range(TWO_LEARNER_ITERS):
+        result = algo.train()
+        rows.append({"iteration": result["training_iteration"], "total_loss": result["total_loss"],
+                     "learn_s": result["learn_time_s"], "updates": result["num_learner_updates"]})
+        weights = ray_tpu_torch.get([lr.get_weights.remote() for lr in algo.learner_group._remote])
+        equal.append(all(np.array_equal(a, b) for a, b in
+                         zip(tree_leaves(weights[0]), tree_leaves(weights[1]))))
+    pids = runtime_worker_pids()
+    algo.stop()
+    line = {"phase": "ppo_two_learners", "num_learners": 2, "num_gpus_per_learner": 0.5,
+            "node_gpu": gpu_total, "node_gpu_available_with_learners": gpu_free,
+            "placement": placement, "per_iteration": rows, "weights_equal": equal,
+            "worker_pids": sorted(pids), "card": smi}
+    emit(line)
+    require(gpu_total == 1 and gpu_free == 0, f"GPU {gpu_total} total, {gpu_free} free: "
+            "expected two learners holding 0.5 each")
+    require(all(p["cuda_visible_devices"] == "0" for p in placement["learners"]),
+            f"learners see {placement['learners']}")
+    require(all(math.isfinite(r["total_loss"]) for r in rows), f"ppo_two_learners: {rows}")
+    require(all(equal), f"ppo_two_learners: weights equal per round {equal}")
+    return line
+
+
+def run_rl_phases(smi):
+    """The RL phases: the learner check, then PPO, DQN and two learners on
+    one runtime, whose shutdown is checked to leave no session directory and
+    no worker process behind. None launches an attention kernel."""
+    import ray_tpu_torch
+    from ray_tpu_torch.ops import launch_counts
+
+    before, start = launch_counts(), time.perf_counter()
+    phase_rl_learner_check(smi)
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4)
+    init_s = time.perf_counter() - t0
+    session_dir = ray_tpu_torch._private.worker.global_worker.session_dir
+    require(ray_tpu_torch.cluster_resources().get("GPU") == 1,
+            f"node resources {ray_tpu_torch.cluster_resources()}: expected GPU: 1")
+    pids = set()
+    for phase in (phase_ppo, phase_dqn, phase_ppo_two_learners):
+        pids |= set(phase(smi)["worker_pids"])
+    t0 = time.perf_counter()
+    ray_tpu_torch.shutdown()
+    shutdown_s = time.perf_counter() - t0
+    leftover_dirs = [session_dir] if os.path.exists(session_dir) else []
+    leftover_pids = sorted(pid for pid in pids if pid_alive(pid))
+    line = {"phase": "rl_shutdown", "rl_phases_s": time.perf_counter() - start,
+            "init_s": init_s, "shutdown_s": shutdown_s,
+            "run_worker_pids": sorted(pids), "leftover_session_dirs": leftover_dirs,
+            "leftover_worker_pids": leftover_pids, "attention_kernel_launches":
+            {k: n - before[k] for k, n in launch_counts().items()}}
+    emit(line)
+    require(not leftover_dirs, f"session directories left after shutdown: {leftover_dirs}")
+    require(not leftover_pids, f"worker processes alive after shutdown: {leftover_pids}")
+    require(not any(line["attention_kernel_launches"].values()),
+            f"the RL phases launched attention kernels: {line['attention_kernel_launches']}")
 
 
 def main():
@@ -986,7 +1392,10 @@ def main():
     zoo_launches["remat_dots"] = phase_remat_dots(smi, losses[0], gnorms[0],
                                                   run["peak_memory_gib"])
 
-    # ------------------------------------------------------------------ 9. result
+    # ------------------------------------------------------------------ 9. RLlib
+    run_rl_phases(smi)
+
+    # ------------------------------------------------------------------ 10. result
     launches_per_path = {name: {"main_path": launches[name], "trainer": t_launches[name],
                                 **{path: n[name] for path, n in zoo_launches.items()}}
                          for name in launches}

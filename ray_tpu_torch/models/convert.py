@@ -33,10 +33,12 @@ def params_from_numpy(tree: Dict[str, Any], device=None, requires_grad: bool = F
 
 def params_to_numpy(params: Dict[str, Any]):
     """Nested dicts and lists of tensors -> the same nesting of numpy arrays on
-    the host. bf16 leaves, which numpy lacks, come back as float32."""
+    the host, copied (a CPU tensor's array would share its memory and follow
+    later in-place updates). bf16 leaves, which numpy lacks, come back as
+    float32."""
 
     def conv(x):
-        t = x.detach().cpu()
+        t = x.detach().to("cpu", copy=True)
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return tree_map(conv, params)

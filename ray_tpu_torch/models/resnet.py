@@ -1,15 +1,16 @@
 """ResNet family in PyTorch: the counterpart of ``ray_tpu/models/resnet.py``.
 
 The JAX package's tree and layout: NHWC activations, HWIO conv kernels
-(permuted to PyTorch's OIHW at use), GroupNorm in f32, bf16 convolutions, f32
-logits; ``params["stage<i>"]`` is a list of block dicts. Convolutions and the
-stem's max-pool pad as XLA's ``padding="SAME"`` does, which is asymmetric for
+(permuted to PyTorch's OIHW at use), GroupNorm in f32, bf16 convolutions with
+f32 outputs, f32 logits; ``params["stage<i>"]`` is a list of block dicts.
+Convolutions and the stem's max-pool pad as XLA's ``padding="SAME"`` does, which is asymmetric for
 a stride-2 window on an even input (the 7x7/2 stem on 224 pads 2 before and 3
 after), so each pads explicitly and then runs unpadded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Tuple
@@ -160,13 +161,57 @@ def _pad_same(x, k: int, stride: int, value: float = 0.0):
     return x
 
 
+@contextlib.contextmanager
+def _tf32_convs():
+    """cuDNN may use TF32 inside the block. Only this flag is set: the
+    ``torch.backends.cudnn.flags`` context manager resets every flag it is not
+    given, ``enabled`` to False among them."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+class _ConvBF16F32Out(torch.autograd.Function):
+    """A convolution of bf16 operands with an f32 output, as
+    ``preferred_element_type=jnp.float32`` gives it: the operands are upcast and
+    convolved in f32, with TF32 allowed for this call only. TF32's 10-bit
+    mantissa holds every bf16 value, so each product is exact and the sums stay
+    f32. The backward takes the output's gradient in bf16 and convolves in
+    bf16, as autograd through a bf16 convolution does, and saves the bf16
+    operands only."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with _tf32_convs():
+            return F.conv2d(x.float(), w.float(), stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = torch.nn.grad.conv2d_input(x.shape, w, g, ctx.stride)
+        if ctx.needs_input_grad[1]:
+            gw = torch.nn.grad.conv2d_weight(x, w.shape, g, ctx.stride)
+        return gx, gw, None
+
+
 def _conv(x, w, stride=1, cdt=None):
     """Convolution of x (N, H, W, Cin) with w (kh, kw, Cin, Cout), "SAME"
-    padding. The products run in ``cdt``; the output is in ``cdt``, where the
-    JAX package keeps it f32 (ROADMAP.md Queue 3)."""
-    x = _pad_same(x.to(cdt), w.shape[0], stride)
+    padding. The products run on operands rounded to ``cdt``; in bf16 the
+    output stays f32 up to the GroupNorm, as the JAX package keeps it."""
+    x = _pad_same(x.to(cdt), w.shape[0], stride).permute(0, 3, 1, 2)
     w = w.to(cdt).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride)
+    if cdt == torch.bfloat16:
+        y = _ConvBF16F32Out.apply(x, w, stride)
+    else:
+        y = F.conv2d(x, w, stride=stride)
     return y.permute(0, 2, 3, 1)
 
 

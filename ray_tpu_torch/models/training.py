@@ -45,12 +45,14 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [leaf for sub in tree for leaf in tree_leaves(sub)]
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of the trees in ``rest``, which
+    have its structure, as ``jax.tree.map`` does."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, *vs) for vs in zip(tree, *rest)]
+    return fn(tree, *rest)
 
 
 @dataclasses.dataclass
@@ -78,7 +80,9 @@ class AdamW:
     """Global-norm clipping then AdamW with decay on every leaf, as
     ``optax.chain(clip_by_global_norm(grad_clip), adamw(lr, b1, b2,
     weight_decay=weight_decay))``. ``learning_rate`` is a float or a function
-    of the update count, evaluated before the count is incremented."""
+    of the update count, evaluated before the count is incremented. With
+    ``grad_clip=None`` nothing is clipped, and with ``weight_decay=0`` it is
+    ``optax.adam``."""
 
     learning_rate: Any = 3e-4
     weight_decay: float = 0.1
@@ -103,16 +107,19 @@ class AdamW:
         leaves = tree_leaves(params)
         mus, nus = tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"])
         g_norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
-        keep = g_norm < self.grad_clip
+        if self.grad_clip is not None:
+            keep = g_norm < self.grad_clip
+            grads = [torch.where(keep, g, (g / g_norm) * self.grad_clip) for g in grads]
         count = opt_state["count"] + 1
         bc1, bc2 = 1 - self.b1 ** count, 1 - self.b2 ** count
         step_size = -self.lr(opt_state["count"])
         for p, g, mu, nu in zip(leaves, grads, mus, nus):
-            g = torch.where(keep, g, (g / g_norm) * self.grad_clip)
             mu.mul_(self.b1).add_((1 - self.b1) * g)
             nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            p.add_((u + self.weight_decay * p) * step_size)
+            if self.weight_decay:
+                u = u + self.weight_decay * p
+            p.add_(u * step_size)
         opt_state["count"] = count
         return g_norm
 

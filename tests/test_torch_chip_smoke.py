@@ -1,11 +1,13 @@
 """The host-side helpers of chip_smoke.py, on the CPU: the ptxas report its
-build phase prints, the relative error its kernel checks use, and the
-trainer phase's check that its own workers are gone after shutdown."""
+build phase prints, the relative error its kernel checks use, the trainer
+phase's check that its own workers are gone after shutdown, and the RL
+phases' numpy CartPole, runner setup and learner check."""
 
 import os
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -149,3 +151,60 @@ def test_shutdown_waits_for_worker_processes_still_exiting():
         ray_tpu_torch.shutdown()
     assert not slow.is_alive()
     assert not chip_smoke.pid_alive(pid)
+
+
+# ------------------------------------------------------------------ the RL phases
+def test_cartpole_reseeds_and_truncates():
+    env = chip_smoke.CartPole(max_episode_steps=5)
+    first = env.reset(seed=3)[0]
+    np.testing.assert_array_equal(first, chip_smoke.CartPole().reset(seed=3)[0])
+    assert first.dtype == np.float32 and np.all(np.abs(first) < 0.05)
+    flags = [env.step(i % 2)[2:4] for i in range(5)]
+    assert flags[-1] == (False, True) and not any(any(f) for f in flags[:-1])
+    assert chip_smoke.CartPole().max_episode_steps == 500
+    assert env.action_space.n == 2 and env.observation_space.shape == (4,)
+    # A reset without a seed continues the generator of the last seeded one.
+    assert not np.array_equal(env.reset()[0], first)
+
+
+def test_runner_runs_on_the_cpu_with_the_threads_it_holds():
+    from ray_tpu_torch.rllib import EnvRunner, MLPModule
+
+    threads = torch.get_num_threads()
+    try:
+        runner = EnvRunner(chip_smoke.CartPole, MLPModule(4, 2), num_envs=2, rollout_length=8,
+                           num_cpus=2)
+        placement = runner.placement()
+        assert torch.get_num_threads() == 2
+    finally:
+        torch.set_num_threads(threads)
+    assert placement["device"] == "cpu" and placement["num_threads"] == 2
+    batch = runner.sample()
+    assert batch["obs"].shape == (8, 2, 4) and batch["actions"].dtype == np.int64
+
+
+def test_rl_rel_err_has_a_floor_of_one():
+    assert chip_smoke.rl_rel_err(2.0, 4.0) == pytest.approx(0.5)
+    assert chip_smoke.rl_rel_err(1e-3, 0.0) == pytest.approx(1e-3)
+    assert chip_smoke.rl_rel_err(np.array([1.0, 3.0]), np.array([1.0, 2.0])) == pytest.approx(0.5)
+
+
+def test_rl_learner_check_runs_on_the_cpu():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny learners: more threads only spin under parallel workers
+    try:
+        lines = chip_smoke.phase_rl_learner_check("cpu", device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert [line["loss"] for line in lines] == ["ppo", "dqn", "c51"]
+    assert [line["rows"] for line in lines] == [128, 64, 64]
+    for line in lines:
+        assert line["updates"] == chip_smoke.RL_UPDATES and line["param_max_abs_err"] == 0
+        assert set(line["max_rel_err_per_key"]) >= {"total_loss", "grad_norm"}
+
+
+def test_rl_iteration_reads_a_result():
+    row = chip_smoke.rl_iteration({"training_iteration": 2, "sample_time_s": 0.5,
+                                   "time_this_iter_s": 0.6}, 512)
+    assert row["env_steps_per_s"] == 1024 and row["learn_s"] is None
+    assert row["updates_per_s"] is None and row["return"] is None

@@ -40,12 +40,14 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax_and_no_ray_tpu():
     # Nor transformers: the HF import reads a model's config and state dict.
+    # Nor optax (the RL optimizers are written out) nor gymnasium (imported
+    # only when an env is made from a string id).
     code = (
         "import importlib, sys\n"
         f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'ray_tpu', 'transformers'))\n"
+        " ('jax', 'ray_tpu', 'transformers', 'optax', 'gymnasium'))\n"
         "print(len(sys.modules), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -58,13 +60,19 @@ def test_importing_every_module_loads_no_jax_and_no_ray_tpu():
 
 def test_sources_name_no_jax_and_no_ray_tpu():
     banned = re.compile(r"^\s*(import jax|from jax|import ray_tpu(?!_torch)|from ray_tpu(?!_torch)"
-                        r"|import transformers|from transformers)", re.M)
+                        r"|import transformers|from transformers|import optax|from optax)", re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG_DIR):
         paths += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    gym = re.compile(r"^\s*(import|from) gymnasium", re.M)
+    importers = []
     for path in paths:
         with open(path) as f:
-            assert not banned.search(f.read()), path
+            src = f.read()
+        assert not banned.search(src), path
+        importers += [os.path.relpath(path, ROOT)] * len(gym.findall(src))
+    # gymnasium: once, in AlgorithmConfig.env_creator, for a string env id.
+    assert importers == ["ray_tpu_torch/rllib/algorithms/algorithm.py"]
 
 
 @pytest.fixture
@@ -84,9 +92,18 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(no_cuda):
         shard_batch({"tokens": np.zeros((1, 2), np.int32)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_numpy({"w": np.zeros(2, np.float32)})
+    from ray_tpu_torch.rllib import MLPModule, PPOConfig, TorchLearner
+    from ray_tpu_torch.rllib.algorithms.ppo import make_ppo_loss
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchLearner(MLPModule(4, 2), make_ppo_loss(PPOConfig()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PPOConfig().build()  # num_gpus_per_learner left at 1
     # Asked for by name, the CPU works.
     state = create_train_state(cfg, 0, default_optimizer(), device="cpu")
     assert state.params["wte"].device.type == "cpu"
+    learner = TorchLearner(MLPModule(4, 2), make_ppo_loss(PPOConfig()), device="cpu")
+    assert learner.placement()["device"] == "cpu"
 
 
 def test_flash_attention_on_cpu_never_touches_the_build(monkeypatch):
@@ -185,6 +202,8 @@ def _top_level_names(name):
                 names.update((a.asname or a.name).split(".")[0] for a in node.names)
             elif isinstance(node, ast.Assign):
                 names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+            elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+                names.add(node.target.id)
     return names
 
 
