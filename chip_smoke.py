@@ -34,6 +34,18 @@ exits non-zero and prints no result.
    and no session directory or worker process left after ``shutdown()``.
    ``overhead_pct`` sets the trainer's tokens/s beside the main path's, as
    ``bench.py`` does.
+6b. collectives and the mesh: ``collective_nccl``, every op of
+   ``ray_tpu_torch.util.collective`` on a world-1 NCCL group over CUDA
+   tensors, f32 and bf16, each result checked and on ``cuda:0``; then
+   ``mesh_gang``, GPT-2 small at full width and depth through
+   ``TorchTrainer`` with ``ScalingConfig(num_workers=2, use_gpu=True,
+   gpus_per_worker=0.5, mesh={"data": 2})`` over gloo (NCCL refuses two ranks
+   on one GPU), global B 16 x S 1024 (8 rows per rank), the main path's
+   weights and batch: ``get_mesh()`` is a ``DeviceMesh`` with the six axis
+   names, the first loss within 1e-3 and grad norm within 1e-3 relative of
+   the main path's, 12 launches of each kernel per step on each rank, the
+   node's ``GPU`` 1.0 with 0.0 free during the fit, nothing left after
+   ``shutdown()``; step ms per rank, collective ms and peak memory printed.
 7. the Llama shape: both bf16 kernels at Llama 3 8B's attention (bh 32,
    S 8192, d 128, causal) against their plain versions
    (``kernel_check_llama``), and their times beside the bounds, the plain
@@ -41,7 +53,7 @@ exits non-zero and prints no result.
 8. the model zoo, each through ``create_train_state`` -> ``make_train_step``
    for 8 steps with AdamW, weights from seed 0 and one batch from numpy seed
    0, each step's launches counted from 0, then two profiled steps:
-   ``llama``: ``LlamaConfig.llama3_8b(n_layer=4)``, full width, B 1 x S 8192,
+   ``llama``: ``LlamaConfig.llama3_8b()`` cut to 4 layers, full width, B 1 x S 8192,
    4 launches of each kernel per step, the first loss within 1e-3 of plain
    attention's and near its value at init; ``moe``: GPT-2 small with 8 Switch
    experts per block, B 16 x S 1024, 12 launches of each kernel per step, the
@@ -63,8 +75,8 @@ exits non-zero and prints no result.
    iterations) and ``ppo_two_learners`` (two remote learners holding 0.5 GPU
    each, weights equal after each round), and ``rl_shutdown`` (nothing left
    after ``shutdown()``, no attention kernel launched by these phases).
-10. a ``kernels`` line (launches per path: main_path, trainer, llama, moe,
-   remat_dots; times at the Llama shape too), checked for the keys the contract names,
+10. a ``kernels`` line (launches per path: main_path, trainer, mesh_gang
+   (rank 0's), llama, moe, remat_dots; times at the Llama shape too), checked for the keys the contract names,
    then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -141,6 +153,8 @@ RESNET_F32_LOSS_TOL, RESNET_INIT_LOSS_TOL = 2e-2, 0.5
 # 1 warmup and DOTS_TIMED timed steps; its first loss and grad norm are held
 # to the main path's with the trainer's and the main path's limits.
 DOTS_TIMED = 3
+# The mesh_gang phase: 1 warmup and MESH_GANG_TIMED timed steps on each rank.
+MESH_GANG_TIMED = 3
 
 
 def emit(obj):
@@ -270,18 +284,19 @@ def build_workload():
     return cfg, opt, state, batch
 
 
-def run_steps(cfg, opt, state, batch, warmup=WARMUP, timed=TIMED, items=B * S):
+def run_steps(cfg, opt, state, batch, warmup=WARMUP, timed=TIMED, items=B * S, mesh=None):
     """``warmup`` + ``timed`` train steps, each timed between two
     ``torch.cuda.synchronize()``s, with the launch counts set to 0 first.
     Returns the state, the step function and a dict of losses, grad norms,
     step ms, ``items`` (tokens or images per step) per second, each step's
-    launches and the peak memory."""
+    launches and the peak memory. With a ``mesh``, this rank's part of a
+    sharded step (``items`` this rank's share)."""
     import torch
 
     from ray_tpu_torch.models import make_train_step
     from ray_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, opt, mesh=mesh)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, gnorms, step_ms, per_step = [], [], [], []
@@ -478,7 +493,7 @@ def phase_llama(smi):
     from ray_tpu_torch.models import LlamaConfig, create_train_state, default_optimizer, shard_batch
     from ray_tpu_torch.models import llama
 
-    cfg = LlamaConfig.llama3_8b(n_layer=LLAMA_LAYERS)
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), n_layer=LLAMA_LAYERS)
     opt = default_optimizer(learning_rate=3e-4)
     rng = np.random.default_rng(0)
     batch = shard_batch({"tokens": rng.integers(0, cfg.vocab_size, (LLAMA_B, LLAMA_S + 1))
@@ -535,9 +550,9 @@ def phase_moe(smi):
         # its MoE layer computes, through the default (kernel) attention.
         plain = moe.moe_mlp
 
-        def counting(x, router_w, *args, capacity_factor):
+        def counting(x, router_w, *args, capacity_factor, **kw):
             dropped.append(1 - moe.route(x, router_w, capacity_factor).keep.float().mean().item())
-            return plain(x, router_w, *args, capacity_factor=capacity_factor)
+            return plain(x, router_w, *args, capacity_factor=capacity_factor, **kw)
 
         moe.moe_mlp = counting
         try:
@@ -653,6 +668,265 @@ def phase_remat_dots(smi, main_loss, main_gnorm, main_peak_gib):
     del state, batch
     torch.cuda.empty_cache()
     return run["launches"]
+
+
+# ---------------------------------------------------------------------------- collectives and the mesh
+COLLECTIVE_DTYPES = ("float32", "bfloat16")
+
+
+def phase_collective_nccl(smi):
+    """Every op of ``ray_tpu_torch.util.collective`` on a world-1 NCCL group
+    over CUDA tensors, f32 and bf16: allreduce under each ReduceOp, reduce,
+    broadcast, allgather, reducescatter, sendrecv to itself and the empty
+    permutation, the three ``*_multidevice`` ops over the one device, and a
+    barrier. In a world of one each result equals its input (the empty
+    permutation: zeros), on ``cuda:0``."""
+    import torch
+
+    from ray_tpu_torch.util import collective as col
+    from ray_tpu_torch.util.collective import ReduceOp
+
+    g = "chip_smoke_nccl"
+    t0 = time.perf_counter()
+    col.init_collective_group(1, 0, backend="nccl", group_name=g)
+    init_s = time.perf_counter() - t0
+    results, devices, bad = {}, set(), []
+    for name in COLLECTIVE_DTYPES:
+        dtype = getattr(torch, name)
+        x = (torch.arange(1024, device="cuda") % 97 + 1).to(dtype)
+        got = {f"allreduce_{op.value}": col.allreduce(x.clone(), g, op) for op in ReduceOp}
+        got["reduce"] = col.reduce(x.clone(), 0, g)
+        got["broadcast"] = col.broadcast(x.clone(), 0, g)
+        got["allgather"] = col.allgather(x, g)[0]
+        got["reducescatter"] = col.reducescatter(x, g)
+        got["sendrecv_self"] = col.sendrecv(x, [(0, 0)], g)
+        got["allreduce_multidevice"] = col.allreduce_multidevice([x.clone()], g)[0]
+        got["allgather_multidevice"] = col.allgather_multidevice([x], g)[0]
+        got["reducescatter_multidevice"] = col.reducescatter_multidevice([x], g)[0]
+        empty = col.sendrecv(x, [], g)
+        col.barrier(g)
+        torch.cuda.synchronize()
+        for op, out in got.items():
+            devices.add(str(out.device))
+            if not torch.equal(out, x):
+                bad.append(f"{name} {op}")
+        if not torch.equal(empty, torch.zeros_like(x)) or empty.device != x.device:
+            bad.append(f"{name} sendrecv []")
+        results[name] = sorted(got) + ["sendrecv_empty", "barrier"]
+    from ray_tpu_torch.util.collective import collective
+
+    stats = dict(collective._STATS)
+    col.destroy_collective_group(g)
+    line = {"phase": "collective_nccl", "world": 1, "backend": "nccl", "init_s": init_s,
+            "ops_checked": results, "result_devices": sorted(devices), "mismatches": bad,
+            "timed_ops": stats["ops"], "timed_s": stats["time_s"], "card": smi}
+    emit(line)
+    require(not bad, f"collective_nccl: results differ from their inputs: {bad}")
+    require(devices == {"cuda:0"}, f"collective_nccl: results on {devices}")
+    return line
+
+
+def collective_ms_per_step(prof, steps):
+    """Time in collectives per step from a ``torch.profiler`` trace: the
+    host's time inside c10d's gloo and NCCL calls (gloo reduces CUDA tensors
+    on the host), and the NCCL kernels' device time."""
+    from torch.autograd import DeviceType
+
+    host = dev = 0.0
+    for e in prof.key_averages():
+        key = e.key.lower()
+        if e.device_type == DeviceType.CUDA and "nccl" in key:
+            dev += e.self_device_time_total / 1e3
+        elif e.device_type == DeviceType.CPU and key.startswith(("gloo:", "nccl:")):
+            host += e.cpu_time_total / 1e3
+    return {"host_ms": host / steps, "nccl_kernel_ms": dev / steps}
+
+
+def mesh_train_loop(config):
+    """The per-worker loop of a mesh gang: ``session.get_mesh()``, the GPT-2
+    or Llama workload sharded over it (weights from seed 0, the batch from
+    numpy seed 0, each rank keeping its shard of the global batch), the
+    timed steps with launches counted per step, one profiled step for the
+    collectives' time, and, from rank 0, the node's GPU resources while the
+    gang holds them. Returns what it measured. ``config["device"] == "cpu"``
+    is a rehearsal on the CPU (``tools/port_multichip.py --rehearse``): the
+    CUDA clock and memory calls become no-ops."""
+    import torch
+
+    if config.get("device") == "cpu":
+        for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+            setattr(torch.cuda, name, lambda *a, **k: None)
+        torch.cuda.max_memory_allocated = lambda *a, **k: 0
+        torch.cuda.current_device = lambda: 0
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    import ray_tpu_torch
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import (GPTConfig, LlamaConfig, create_train_state,
+                                      default_optimizer, shard_batch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = session.get_mesh()
+    if config["model"] == "llama3_8b":
+        cfg = dataclasses.replace(LlamaConfig.llama3_8b(), **config.get("cut", {}))
+    else:
+        cfg = dataclasses.replace(GPTConfig.gpt2_small(), **config.get("cut", {}))
+    opt = default_optimizer(learning_rate=3e-4)
+    gb, seq = config["global_batch"], config["seq"]
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size - 1, (gb, seq + 1))
+    batch = shard_batch({"tokens": tokens.astype(np.int32)}, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, 0, opt, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gib = torch.cuda.max_memory_allocated() / 2**30
+    # Tokens per GPU: a tensor-parallel group shares its rows.
+    per_gpu = gb * seq // dist.get_world_size()
+    state, step, run = run_steps(cfg, opt, state, batch, warmup=config["warmup"],
+                                 timed=config["timed"], items=per_gpu, mesh=mesh)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    run["collective_ms_per_step"] = collective_ms_per_step(prof, 1)
+    if dist.get_rank() == 0:
+        run["node_gpu"] = ray_tpu_torch.cluster_resources().get("GPU")
+        run["node_gpu_available"] = ray_tpu_torch.available_resources().get("GPU")
+    run.update(rank=dist.get_rank(), world=dist.get_world_size(), backend=dist.get_backend(),
+               mesh_is_device_mesh=isinstance(mesh, DeviceMesh),
+               mesh_dim_names=list(mesh.mesh_dim_names), mesh_shape=list(mesh.mesh.shape),
+               device=str(torch.device("cuda", torch.cuda.current_device())),
+               cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"), pid=os.getpid(),
+               init_s=init_s, state_peak_gib=state_gib, n_layer=cfg.n_layer,
+               tokens_per_gpu_per_step=per_gpu)
+    return run
+
+
+def run_mesh_gang(scaling, backend, config, name):
+    """``mesh_train_loop`` through ``TorchTrainer`` on a fresh runtime; every
+    rank's report (the runtime forwards rank 0's, so each rank also puts its
+    own under a KV key), the runtime's worker pids, and what is left after
+    ``shutdown()``."""
+    import ray_tpu_torch
+    import ray_tpu_torch.train.torch as rt_torch
+    from ray_tpu_torch.air import RunConfig
+
+    ray_tpu_torch.init(num_cpus=max(4, scaling.num_workers + 2))
+    session_dir = ray_tpu_torch._private.worker.global_worker.session_dir
+    node = ray_tpu_torch.cluster_resources()
+    trainer = rt_torch.TorchTrainer(
+        _per_rank_reports, train_loop_config={**config, "kv_key": name},
+        scaling_config=scaling,
+        backend_config=rt_torch.TorchConfig(backend=backend, device=config.get("device")),
+        run_config=RunConfig(name=name, storage_path=os.path.join(session_dir, "results")))
+    t0 = time.perf_counter()
+    try:
+        result = trainer.fit()
+        error = result.error
+    except Exception as e:  # printed with the workers' logs, then raised
+        error = e
+    fit_s = time.perf_counter() - t0
+    if error is not None:
+        for log in sorted(glob.glob(os.path.join(session_dir, "logs", "worker-*.log"))):
+            with open(log, errors="replace") as f:
+                print(f"--- {log} (tail)\n" + "".join(f.readlines()[-40:]), file=sys.stderr)
+        raise error
+    from ray_tpu_torch._private.worker import global_worker
+
+    ranks = [json.loads(global_worker.context.kv("get", f"{name}/{r}".encode()))
+             for r in range(scaling.num_workers)]
+    pids = runtime_worker_pids() | {r["pid"] for r in ranks}
+    ray_tpu_torch.shutdown()
+    leftover_dirs = [session_dir] if os.path.exists(session_dir) else []
+    leftover_pids = sorted(p for p in pids if pid_alive(p))
+    return {"ranks": ranks, "node_resources": node, "fit_s": fit_s,
+            "leftover_session_dirs": leftover_dirs, "leftover_worker_pids": leftover_pids}
+
+
+def _per_rank_reports(config):
+    """``mesh_train_loop`` on each rank, its result put in the KV store under
+    ``<kv_key>/<rank>`` for the calling process (a run's Result holds rank 0's report
+    alone), then reported."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.air import session
+
+    run = mesh_train_loop(config)
+    blob = json.dumps(run, default=float).encode()
+    global_worker.context.kv("put", f"{config['kv_key']}/{dist.get_rank()}".encode(), blob)
+    session.report(run)
+
+
+def run_mesh_phases(smi):
+    """``collective_nccl`` and ``mesh_gang`` alone, against the main path's
+    first step taken here (``tools/port_chip_phases.py mesh``)."""
+    import torch
+
+    from ray_tpu_torch.ops import _build
+
+    _build.build()
+    cfg, opt, state, batch = build_workload()
+    state, _, run = run_steps(cfg, opt, state, batch, warmup=0, timed=1)
+    del state, batch
+    torch.cuda.empty_cache()
+    phase_collective_nccl(smi)
+    return phase_mesh_gang(smi, run["losses"][0], run["grad_norms"][0])
+
+
+def phase_mesh_gang(smi, main_loss, main_gnorm):
+    """GPT-2 small at full width and depth through ``TorchTrainer`` on a
+    ``{"data": 2}`` mesh: two workers holding 0.5 GPU each on the one card,
+    over gloo (NCCL refuses two ranks on one GPU), global B 16 x S 1024 (8
+    rows per rank), the main path's weights and batch, 1 warmup and 3 timed
+    steps."""
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.parallel import AXIS_ORDER
+
+    scaling = ScalingConfig(num_workers=2, use_gpu=True, gpus_per_worker=0.5, mesh={"data": 2})
+    config = {"model": "gpt2_small", "global_batch": B, "seq": S, "warmup": 1,
+              "timed": MESH_GANG_TIMED}
+    out = run_mesh_gang(scaling, "gloo", config, "chip_smoke_mesh_gang")
+    ranks = out["ranks"]
+    r0 = ranks[0]
+    n = 12
+    line = {"phase": "mesh_gang", "entry": "TorchTrainer.fit", "mesh": {"data": 2},
+            "backend": "gloo", "num_workers": 2, "gpus_per_worker": 0.5,
+            "global_batch": B, "seq": S, "node_resources": out["node_resources"],
+            "node_gpu_available_during_fit": r0.get("node_gpu_available"),
+            "mesh_dim_names": r0["mesh_dim_names"], "mesh_shape": r0["mesh_shape"],
+            "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+            "main_path_first_loss": main_loss, "main_path_first_grad_norm": main_gnorm,
+            "first_loss_abs_err_vs_main_path": abs(r0["losses"][0] - main_loss),
+            "first_grad_norm_rel_err_vs_main_path": abs(r0["grad_norms"][0] - main_gnorm)
+            / main_gnorm,
+            "per_rank": [{k: r[k] for k in (
+                "rank", "pid", "device", "cuda_visible_devices", "step_ms_timed",
+                "step_ms_median", "items_per_s", "launches_per_step", "launches",
+                "collective_ms_per_step", "peak_memory_gib", "state_peak_gib", "init_s")}
+                for r in ranks],
+            "fit_s": out["fit_s"], "leftover_session_dirs": out["leftover_session_dirs"],
+            "leftover_worker_pids": out["leftover_worker_pids"], "card": smi}
+    emit(line)
+    require(all(r["mesh_is_device_mesh"] and r["mesh_dim_names"] == list(AXIS_ORDER)
+                for r in ranks), f"mesh_gang: get_mesh() gave {r0['mesh_dim_names']}")
+    require(line["first_loss_abs_err_vs_main_path"] <= LOSS_TOL,
+            f"mesh_gang: first loss {r0['losses'][0]} vs the main path's {main_loss}")
+    require(line["first_grad_norm_rel_err_vs_main_path"] <= GRAD_NORM_RTOL,
+            f"mesh_gang: first grad norm {r0['grad_norms'][0]} vs the main path's {main_gnorm}")
+    for r in ranks:
+        check_launches(f"mesh_gang rank {r['rank']}", r, n)
+        require(all(math.isfinite(x) for x in r["losses"]), f"mesh_gang: losses {r['losses']}")
+    require(out["node_resources"].get("GPU") == 1 and r0.get("node_gpu_available") == 0,
+            f"mesh_gang: node GPU {out['node_resources'].get('GPU')}, "
+            f"{r0.get('node_gpu_available')} free during the fit: expected 1.0 and 0.0")
+    require(not out["leftover_session_dirs"] and not out["leftover_worker_pids"],
+            f"mesh_gang: left after shutdown: {out['leftover_session_dirs']}, "
+            f"{out['leftover_worker_pids']}")
+    return r0["launches"]
 
 
 def check_launches(path, run, n_layer):
@@ -1374,6 +1648,10 @@ def main():
     require(not leftover_dirs, f"session directories left after shutdown: {leftover_dirs}")
     require(not leftover_pids, f"worker processes alive after shutdown: {leftover_pids}")
 
+    # ------------------------------------------------------------------ 6b. collectives, the mesh
+    phase_collective_nccl(smi)
+    mesh_launches = phase_mesh_gang(smi, losses[0], gnorms[0])
+
     # ------------------------------------------------------------------ 7. the Llama shape
     # Both bf16 kernels at Llama 3 8B's attention: bh 32 (B 1, 32 heads after
     # the kv heads are repeated), S 8192, d 128, causal.
@@ -1397,6 +1675,7 @@ def main():
 
     # ------------------------------------------------------------------ 10. result
     launches_per_path = {name: {"main_path": launches[name], "trainer": t_launches[name],
+                                "mesh_gang": mesh_launches[name],
                                 **{path: n[name] for path, n in zoo_launches.items()}}
                          for name in launches}
 
@@ -1425,7 +1704,7 @@ def main():
          "library_ms_one_call": one_call["sdpa_bwd_ms"],
          "llama_shape": at_llama_shape("bwd", llama_err[1])},
     ]}
-    problems = check_kernels_line(kernels, ["main_path", "trainer", *zoo_launches])
+    problems = check_kernels_line(kernels, ["main_path", "trainer", "mesh_gang", *zoo_launches])
     require(not problems, f"kernels line: {problems}")
     emit(kernels)
     print(smi, flush=True)

@@ -52,8 +52,12 @@ def timeline(filename=None):
     tracing spans (submit/execute/custom) and collective-op intervals on
     shared trace ids. Returns the event list; writes JSON when `filename`
     is given — load it at chrome://tracing or https://ui.perfetto.dev."""
-    from ray_tpu_torch.util import state as _state
-
+    try:
+        from ray_tpu_torch.util import state as _state
+    except ImportError as e:
+        raise NotImplementedError(
+            "timeline() needs the state API, which is not ported yet: ROADMAP.md Queue 1 item 2"
+        ) from e
     return _state.timeline(filename)
 
 

@@ -88,7 +88,13 @@ def main() -> None:
                 gcs.kv_put(key, b"FAILED")
                 # Leave a queryable record of WHY (reference: GcsJobManager
                 # marks running jobs dead with a death cause on recovery).
-                from ray_tpu_torch.job_submission.client import _message_key
+                try:
+                    from ray_tpu_torch.job_submission.client import _message_key
+                except ImportError as e:
+                    raise NotImplementedError(
+                        "recovering submitted jobs needs job submission, which is not ported "
+                        "yet: ROADMAP.md Queue 1 item 2"
+                    ) from e
 
                 job_id = key[len(b"job::"): -len(b"::status")].decode()
                 gcs.kv_put(
@@ -134,14 +140,18 @@ def main() -> None:
 
     dashboard_port = None
     if ns.dashboard_port is not None:
+        try:
+            from ray_tpu_torch.dashboard import start_dashboard
+        except ImportError as e:
+            raise NotImplementedError(
+                "--dashboard-port: the dashboard is not ported yet: ROADMAP.md Queue 1 item 2"
+            ) from e
         # The dashboard needs a driver context for state queries: the head
         # process self-connects as a client driver.
         import ray_tpu_torch
 
         os.environ["RAY_TPU_TORCH_AUTHKEY_HEX"] = scheduler.authkey.hex()
         ray_tpu_torch.init(address=f"{scheduler.tcp_address[0]}:{scheduler.tcp_address[1]}")
-        from ray_tpu_torch.dashboard import start_dashboard
-
         dashboard_port = start_dashboard(ns.host, ns.dashboard_port).port
 
     def _signal(_sig, _frm):

@@ -201,7 +201,12 @@ class ActorClass:
 
     def bind(self, *args, **kwargs):
         """Build a lazy actor DAG node (reference: `dag/class_node.py`)."""
-        from ray_tpu_torch.dag import ClassNode
+        try:
+            from ray_tpu_torch.dag import ClassNode
+        except ImportError as e:
+            raise NotImplementedError(
+                "the DAG API (.bind) is not ported yet: ROADMAP.md Queue 1 item 2"
+            ) from e
 
         return ClassNode(self, args, kwargs)
 

@@ -4,9 +4,9 @@ Reference: `python/ray/air/config.py` (`ScalingConfig`, `RunConfig`,
 `FailureConfig:512`, `CheckpointConfig`).
 
 GPU delta: `use_gpu` puts `GPU` in each worker's resources, as in the
-reference. `num_workers` is the number of *processes*. A `mesh` layout (torch
-`DeviceMesh`es) comes with multi-GPU parallelism (ROADMAP.md Queue 1 item 3);
-until then setting it raises.
+reference. `num_workers` is the number of *processes*, one device each; a
+`mesh` lays them out over the data, fsdp and tensor axes (a torch
+`DeviceMesh`, `session.get_mesh()`).
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ class ScalingConfig:
     use_gpu: bool = False
     resources_per_worker: Optional[Dict[str, float]] = None
     placement_strategy: str = "PACK"
-    # SPMD mesh layout for the training step: not ported yet (ROADMAP.md
-    # Queue 1 item 3); anything but None raises.
+    # SPMD mesh layout for the training step: a MeshSpec or a dict of axis
+    # sizes, e.g. {"data": 4} or {"data": 2, "tensor": 2}, over the gang's
+    # processes. Pipeline, context and expert axes > 1 raise (not ported).
     mesh: Optional[Union[Dict[str, int], Any]] = None
     # GPUs each worker process holds (default 1 when use_gpu); the same as
     # resources_per_worker={"GPU": n}, so setting both raises.
@@ -42,10 +43,9 @@ class ScalingConfig:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(
-                "ScalingConfig.mesh (torch DeviceMeshes) is not ported yet: "
-                "ROADMAP.md Queue 1 item 3"
-            )
+            from ray_tpu_torch.parallel.mesh import check_mesh
+
+            check_mesh(self.mesh_spec())
         if self.num_workers < 1:
             raise ValueError("num_workers must be >= 1")
         if self.gpus_per_worker is not None and "GPU" in (self.resources_per_worker or {}):
@@ -69,11 +69,15 @@ class ScalingConfig:
         return [dict(self._resources) for _ in range(self.num_workers)]
 
     def mesh_spec(self):
-        """The mesh layout: not ported yet."""
-        raise NotImplementedError(
-            "ScalingConfig.mesh_spec (torch DeviceMeshes) is not ported yet: "
-            "ROADMAP.md Queue 1 item 3"
-        )
+        """The mesh layout: ``mesh`` as a ``MeshSpec``, by default pure data
+        parallelism over the workers."""
+        from ray_tpu_torch.parallel.mesh import MeshSpec
+
+        if self.mesh is None:
+            return MeshSpec.for_data_parallel(self.num_workers)
+        if isinstance(self.mesh, MeshSpec):
+            return self.mesh
+        return MeshSpec.from_dict(self.mesh)
 
 
 @dataclass

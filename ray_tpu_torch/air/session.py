@@ -117,8 +117,7 @@ def get_dataset_shard(dataset_name: str = "train"):
 
 
 def get_mesh():
-    """The device mesh of this training run: not ported yet (torch
-    DeviceMeshes come with multi-GPU parallelism)."""
-    raise NotImplementedError(
-        "session.get_mesh (torch DeviceMeshes) is not ported yet: ROADMAP.md Queue 1 item 3"
-    )
+    """The ``DeviceMesh`` of this training run (``TorchTrainer``), built from
+    ``ScalingConfig.mesh`` over the gang's process group the first time it is
+    asked for. None inside a trainer or tuner that builds no mesh."""
+    return getattr(_require_session(), "mesh", None)

@@ -5,6 +5,7 @@ from ray_tpu_torch.models.gpt import (
     init_params,
     loss_fn,
     num_params,
+    param_logical_axes,
     train_flops_per_token,
 )
 from ray_tpu_torch.models.llama import LlamaConfig
@@ -15,6 +16,7 @@ from ray_tpu_torch.models.training import (
     create_train_state,
     default_optimizer,
     make_train_step,
+    param_shardings,
     shard_batch,
 )
 
@@ -31,6 +33,8 @@ __all__ = [
     "loss_fn",
     "make_train_step",
     "num_params",
+    "param_logical_axes",
+    "param_shardings",
     "params_from_numpy",
     "params_to_numpy",
     "shard_batch",

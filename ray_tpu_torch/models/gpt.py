@@ -5,7 +5,8 @@ shapes: per-layer params stacked on a leading ``(L, ...)`` dim under
 ``"blocks"``, so ``models/convert.py`` carries a JAX pytree across unchanged.
 Activations and matmuls run in ``config.dtype`` (bf16 in training), params,
 layernorm and logits in f32. Attention is ``ops.flash_attention``: the CUDA
-kernels on the GPU, their plain versions on the CPU.
+kernels on the GPU, their plain versions on the CPU. On a mesh the same code
+runs on each rank's shards (``parallel/spmd.py``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._private.accelerators.gpu import resolve_device
 from ray_tpu_torch.models import moe
-from ray_tpu_torch.models.stack import apply_stack, causal_lm_loss, remat, resolve_attention
+from ray_tpu_torch.models.stack import apply_stack, remat, resolve_attention
+from ray_tpu_torch.ops.basic import HeadF32, causal_lm_loss, fold_seed
+from ray_tpu_torch.parallel.spmd import fold_batch_index, spmd_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,32 +108,35 @@ def train_flops_per_token(config: GPTConfig, seq_len: int) -> float:
     return 6.0 * num_params(config) + attn
 
 
-def fold_seed(seed: int, data: int) -> int:
-    """A new 63-bit seed from (seed, data): the counterpart of ``fold_in``."""
-    return (seed * 0x9E3779B97F4A7C15 + data + 1) % (1 << 63)
-
 
 # --------------------------------------------------------------------------- init
-def init_params(config: GPTConfig, seed=0, device=None) -> Dict[str, Any]:
+def init_params(config: GPTConfig, seed=0, device=None, place=None) -> Dict[str, Any]:
     """Random GPT-2 params (normal(0.02), residual projections scaled by
     1/sqrt(2L)) from ``seed`` (an int or a ``torch.Generator``), on ``device``
-    (``None``: the GPU; raises when there is none)."""
+    (``None``: the GPU; raises when there is none; ``"meta"``: shapes only).
+    ``place(leaf)``, when given, takes each leaf as it is drawn and returns
+    what the tree keeps (a sharded init keeps this rank's shard)."""
     device = resolve_device(device)
     d, L, V, F_ = config.d_model, config.n_layer, config.vocab_size, config.ff_dim
     nh, hd = config.n_head, config.head_dim
     std = 0.02
     proj_std = std / math.sqrt(2 * L)  # GPT-2 residual-scaled init
     pd = config.param_dtype
-    if isinstance(seed, torch.Generator):
+    put = place or (lambda t: t)
+    if device.type == "meta":
+        gen = None
+    elif isinstance(seed, torch.Generator):
         gen = seed
     else:
         gen = torch.Generator(device=device).manual_seed(int(seed))
 
     def norm(shape, s):
-        return (torch.randn(shape, generator=gen, device=gen.device) * s).to(device, pd)
+        if gen is None:
+            return put(torch.empty(shape, dtype=pd, device=device))
+        return put((torch.randn(shape, generator=gen, device=gen.device) * s).to(device, pd))
 
     def const(shape, value):
-        return torch.full(shape, value, dtype=pd, device=device)
+        return put(torch.full(shape, value, dtype=pd, device=device))
 
     blocks = {
         "ln1_scale": const((L, d), 1.0),
@@ -143,7 +149,7 @@ def init_params(config: GPTConfig, seed=0, device=None) -> Dict[str, Any]:
         "ln2_bias": const((L, d), 0.0),
     }
     if config.moe_experts:
-        blocks["moe"] = moe.init_moe_params(gen, L, d, F_, config.moe_experts, pd, device)
+        blocks["moe"] = moe.init_moe_params(gen, L, d, F_, config.moe_experts, pd, device, put)
     else:
         blocks.update({
             "fc_w": norm((L, d, F_), std),
@@ -157,6 +163,39 @@ def init_params(config: GPTConfig, seed=0, device=None) -> Dict[str, Any]:
         "blocks": blocks,
         "lnf_scale": const((d,), 1.0),
         "lnf_bias": const((d,), 0.0),
+    }
+
+
+def param_logical_axes(config: GPTConfig) -> Dict[str, Any]:
+    """Per-leaf logical axis names, consumed by ``parallel.ShardingRules``:
+    those of ``ray_tpu/models/gpt.py``."""
+    blocks = {
+        "ln1_scale": ("layers", None),
+        "ln1_bias": ("layers", None),
+        "qkv_w": ("layers", "embed", None, "heads", None),
+        "qkv_b": ("layers", None, "heads", None),
+        "out_w": ("layers", "heads", None, "embed"),
+        "out_b": ("layers", None),
+        "ln2_scale": ("layers", None),
+        "ln2_bias": ("layers", None),
+    }
+    if config.moe_experts:
+        blocks["moe"] = moe.moe_param_logical_axes()
+    else:
+        blocks.update(
+            {
+                "fc_w": ("layers", "embed", "mlp"),
+                "fc_b": ("layers", "mlp"),
+                "proj_w": ("layers", "mlp", "embed"),
+                "proj_b": ("layers", None),
+            }
+        )
+    return {
+        "wte": ("vocab", "embed"),
+        "wpe": (None, "embed"),
+        "blocks": blocks,
+        "lnf_scale": (None,),
+        "lnf_bias": (None,),
     }
 
 
@@ -178,68 +217,84 @@ def _dropout(x, rate: float, seed: Optional[int]):
     return torch.where(keep, x / (1.0 - rate), 0).to(x.dtype)
 
 
-class _HeadF32(torch.autograd.Function):
-    """``x @ w.T`` from operands in the compute dtype, summed and returned in
-    f32 (the JAX head's ``preferred_element_type=f32``): the logits are never
-    rounded to bf16. The backward rounds the f32 cotangent to the operands'
-    type, as the TPU's default-precision dot does with mixed operands."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        if x.is_cuda:
-            return torch.mm(x, w.t(), out_dtype=torch.float32)
-        # aten::mm.dtype has no CPU kernel: the same products, taken in f32.
-        return torch.mm(x.float(), w.float().t())
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(x.dtype)
-        return g @ w, g.t() @ x
-
-
 def _lm_head(x, w):
     """Logits (..., V) in f32 from x (..., d) and the tied embedding w (V, d)."""
     if x.dtype == torch.float32:
         return x @ w.t()
-    return _HeadF32.apply(x.reshape(-1, x.shape[-1]), w).view(*x.shape[:-1], w.shape[0])
+    return HeadF32.apply(x.reshape(-1, x.shape[-1]), w).view(*x.shape[:-1], w.shape[0])
 
 
-def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=False):
+def _weight(layer, name, cdt, spmd):
+    """Leaf ``name`` of ``layer`` in ``cdt``, whole over ``fsdp`` on a mesh
+    (cast first, so the gather moves ``cdt`` bytes)."""
+    w = layer[name].to(cdt)
+    return w if spmd is None else spmd.gather(w, name)
+
+
+def _out_product(a, w, cdt, spmd, sharded: bool):
+    """``a @ w``; row-parallel across the tensor group when ``sharded``."""
+    return spmd.row_parallel(a, w, cdt) if sharded else a @ w
+
+
+def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=False,
+           spmd=None):
     """One transformer block. x: (B, S, D) in config.dtype. Returns (x, aux):
     aux is the MoE load-balancing loss (None when dense).
 
     With sub_remat ("save_attn"), the qkv projection and the out-proj/MLP half
     are each checkpointed while the attention call between them is not: its
-    residuals are saved, so the backward never re-runs the forward kernel."""
+    residuals are saved, so the backward never re-runs the forward kernel.
+
+    On a mesh (``spmd``), x and ``layer`` are this rank's shards: weights are
+    gathered over ``fsdp`` inside each checkpointed half, and heads and the
+    MLP's hidden dim run tensor-parallel where ``ShardingRules`` split them
+    (the local weight is narrower than the config's)."""
     cdt = config.dtype
     B, S, D = x.shape
-    nh, hd = config.n_head, config.head_dim
+    hd = config.head_dim
     s1 = s2 = None
     if drop_seed is not None and config.dropout > 0:
         s1, s2 = fold_seed(drop_seed, 1), fold_seed(drop_seed, 2)
 
     def qkv_part(x, layer):
         h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"]).to(cdt)
-        qkv = (h @ layer["qkv_w"].to(cdt).reshape(D, 3 * D)).view(B, S, 3, nh, hd)
+        qkv_w = _weight(layer, "qkv_w", cdt, spmd)  # (D, 3, nh_local, hd)
+        nh = qkv_w.shape[2]
+        if spmd is not None:
+            h = spmd.copy_to_tp(h, nh < config.n_head)
+        qkv = (h @ qkv_w.reshape(D, 3 * nh * hd)).view(B, S, 3, nh, hd)
         qkv = qkv + layer["qkv_b"].to(cdt)
         # (B, nh, S, hd), contiguous: the attention kernels take no strides.
         return tuple(qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
 
     def out_mlp_part(x, o, layer):
-        o = o.transpose(1, 2).reshape(B, S, D) @ layer["out_w"].to(cdt).reshape(D, D)
+        nh = o.shape[1]
+        out_w = _weight(layer, "out_w", cdt, spmd).reshape(nh * hd, D)
+        o = _out_product(o.transpose(1, 2).reshape(B, S, nh * hd), out_w, cdt, spmd,
+                         nh < config.n_head)
         x = x + _dropout(o + layer["out_b"].to(cdt), config.dropout, s1)
         h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"]).to(cdt)
         aux = None
         if config.moe_experts:
-            m = layer["moe"]
+            m = {k: _weight(layer["moe"], k, cdt if k != "router_w" else v.dtype, spmd)
+                 for k, v in layer["moe"].items()}
+            if spmd is not None and m["fc_w"].shape[-1] < config.ff_dim:
+                raise NotImplementedError(
+                    "MoE experts split over the tensor axis are not ported yet: ROADMAP.md "
+                    "Queue 1 item 3 (MoE's expert axis)"
+                )
             h, aux = moe.moe_mlp(h, m["router_w"], m["fc_w"], m["fc_b"], m["proj_w"],
-                                 m["proj_b"], capacity_factor=config.moe_capacity_factor)
+                                 m["proj_b"], capacity_factor=config.moe_capacity_factor,
+                                 batch_mean=None if spmd is None else spmd.batch_mean)
         else:
-            h = h @ layer["fc_w"].to(cdt) + layer["fc_b"].to(cdt)
+            fc_w = _weight(layer, "fc_w", cdt, spmd)  # (D, F_local)
+            sharded = fc_w.shape[-1] < config.ff_dim
+            if spmd is not None:
+                h = spmd.copy_to_tp(h, sharded)
+            h = h @ fc_w + layer["fc_b"].to(cdt)
             h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-            h = h @ layer["proj_w"].to(cdt) + layer["proj_b"].to(cdt)
+            h = _out_product(h, _weight(layer, "proj_w", cdt, spmd), cdt, spmd, sharded)
+            h = h + layer["proj_b"].to(cdt)
         return x + _dropout(h, config.dropout, s2), aux
 
     if sub_remat:
@@ -250,6 +305,45 @@ def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=
     if sub_remat:
         return remat(out_mlp_part)(x, o, layer)
     return out_mlp_part(x, o, layer)
+
+
+def _forward_local(params, tokens, config: GPTConfig, attention_fn, dropout_seed, mesh, spmd):
+    """Logits (B, S, V) f32 and the MoE aux loss from params and tokens on
+    one device, or from this rank's shards on a mesh (logits then (B_local,
+    S, V_local))."""
+    B, S = tokens.shape
+    cdt = config.dtype
+    wte = params["wte"].to(cdt)
+    if spmd is None:
+        x = F.embedding(tokens, wte) + params["wpe"].to(cdt)[:S][None]
+    else:
+        wte = spmd.gather(wte, "wte")
+        wpe = spmd.gather(params["wpe"].to(cdt), "wpe")
+        x = spmd.embed(tokens, wte, config.vocab_size) + wpe[:S][None]
+        dropout_seed = fold_batch_index(dropout_seed, spmd)
+    use_dropout = dropout_seed is not None and config.dropout > 0
+    layers_seed = None
+    if use_dropout:
+        x = _dropout(x, config.dropout, fold_seed(dropout_seed, 0))
+        layers_seed = fold_seed(dropout_seed, 1)
+
+    save_attn = config.remat and config.remat_policy == "save_attn"
+
+    def block_fn(x, layer, idx):
+        seed = fold_seed(layers_seed, idx) if use_dropout else None
+        return _block(x, layer, config, attention_fn, seed, sub_remat=save_attn, spmd=spmd)
+
+    x, moe_aux = apply_stack(
+        params["blocks"],
+        x,
+        remat(block_fn, config.remat_policy) if config.remat and not save_attn else block_fn,
+        n_layer=config.n_layer,
+        mesh=mesh,
+    )
+    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(cdt)
+    if spmd is not None:
+        x = spmd.copy_to_tp(x, wte.shape[0] < config.vocab_size)
+    return _lm_head(x, wte), moe_aux
 
 
 def forward(
@@ -263,32 +357,17 @@ def forward(
 ):
     """Returns logits (B, S, vocab) in float32 (with ``return_aux``, a
     (logits, moe_aux_loss) pair). Pass ``dropout_seed`` to enable dropout
-    (training); omit it for deterministic eval. One device only."""
-    B, S = tokens.shape
-    cdt = config.dtype
-    wte = params["wte"].to(cdt)
-    x = F.embedding(tokens, wte) + params["wpe"].to(cdt)[:S][None]
-    use_dropout = dropout_seed is not None and config.dropout > 0
-    layers_seed = None
-    if use_dropout:
-        x = _dropout(x, config.dropout, fold_seed(dropout_seed, 0))
-        layers_seed = fold_seed(dropout_seed, 1)
-
-    save_attn = config.remat and config.remat_policy == "save_attn"
-
-    def block_fn(x, layer, idx):
-        seed = fold_seed(layers_seed, idx) if use_dropout else None
-        return _block(x, layer, config, attention_fn, seed, sub_remat=save_attn)
-
-    x, moe_aux = apply_stack(
-        params["blocks"],
-        x,
-        remat(block_fn, config.remat_policy) if config.remat and not save_attn else block_fn,
-        n_layer=config.n_layer,
-        mesh=mesh,
-    )
-    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
-    logits = _lm_head(x.to(cdt), wte)
+    (training); omit it for deterministic eval. On a ``mesh`` (a
+    ``DeviceMesh``), params and tokens are DTensors (``create_train_state``,
+    ``shard_batch``) and the logits a DTensor: batch over (data, fsdp), vocab
+    over tensor."""
+    spmd = spmd_for(mesh)
+    if spmd is not None:
+        params, tokens = spmd.local(params), spmd.batch_local(tokens)
+    logits, moe_aux = _forward_local(params, tokens, config, attention_fn, dropout_seed, mesh,
+                                     spmd)
+    if spmd is not None:
+        logits = spmd.global_batch(logits, config.vocab_size)
     return (logits, moe_aux) if return_aux else logits
 
 
@@ -300,15 +379,23 @@ def loss_fn(
     dropout_seed: Optional[int] = None,
     mesh=None,
 ):
-    """Causal LM cross entropy (mean over tokens)."""
+    """Causal LM cross entropy (mean over tokens; on a mesh, over the global
+    batch, the same on every rank)."""
+    spmd = spmd_for(mesh)
+    if spmd is not None:
+        params = spmd.local(params)
+        batch = {k: spmd.batch_local(v) for k, v in batch.items()}
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits, moe_aux = forward(params, inputs, config, attention_fn, dropout_seed, mesh,
-                              return_aux=True)
-    loss = causal_lm_loss(logits, targets)
+    logits, moe_aux = _forward_local(params, inputs, config, attention_fn, dropout_seed, mesh,
+                                     spmd)
+    if spmd is None:
+        loss = causal_lm_loss(logits, targets)
+    else:
+        loss = spmd.lm_loss(logits, targets, config.vocab_size)
     if config.moe_experts:
         loss = loss + config.moe_aux_weight * moe_aux
     return loss

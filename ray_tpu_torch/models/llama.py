@@ -5,7 +5,8 @@ an untied LM head, on the same scaffolding as ``models/gpt.py``: the JAX
 package's leaf names and stacked ``(L, ...)`` shapes, bf16 products over f32
 params, f32 norms and logits, attention through ``ops.flash_attention``.
 Grouped-query attention repeats each kv head to the query heads before the
-attention call, as the JAX block does; there is no GQA-native kernel.
+attention call, as the JAX block does; there is no GQA-native kernel. On a
+mesh the same code runs on each rank's shards (``parallel/spmd.py``).
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._private.accelerators.gpu import resolve_device
-from ray_tpu_torch.models.gpt import _lm_head
-from ray_tpu_torch.models.stack import apply_stack, causal_lm_loss, remat, resolve_attention
+from ray_tpu_torch.models.gpt import _lm_head, _out_product, _weight
+from ray_tpu_torch.models.stack import apply_stack, remat, resolve_attention
+from ray_tpu_torch.ops.basic import causal_lm_loss
+from ray_tpu_torch.parallel.spmd import spmd_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,28 +54,30 @@ class LlamaConfig:
         return self.n_head // self.n_kv_head
 
     # ---- presets ----
-    # Keyword arguments override a preset's sizes too (the JAX presets refuse
-    # them), so a depth cut reads ``llama3_8b(n_layer=4)``.
+    # As in the JAX package, a keyword that names one of a preset's own sizes
+    # raises TypeError (a duplicate keyword); a depth cut reads
+    # ``dataclasses.replace(LlamaConfig.llama3_8b(), n_layer=4)``.
     @classmethod
     def llama2_7b(cls, **kw):
         return cls(**kw)
 
     @classmethod
     def llama2_13b(cls, **kw):
-        return cls(**{**dict(n_layer=40, n_head=40, n_kv_head=40, d_model=5120, d_ff=13824),
-                      **kw})
+        return cls(n_layer=40, n_head=40, n_kv_head=40, d_model=5120, d_ff=13824, **kw)
 
     @classmethod
     def llama3_8b(cls, **kw):
-        return cls(**{**dict(vocab_size=128256, n_layer=32, n_head=32, n_kv_head=8,
-                             d_model=4096, d_ff=14336, max_seq_len=8192, rope_theta=500000.0),
-                      **kw})
+        return cls(
+            vocab_size=128256, n_layer=32, n_head=32, n_kv_head=8,
+            d_model=4096, d_ff=14336, max_seq_len=8192, rope_theta=500000.0, **kw
+        )
 
     @classmethod
     def nano(cls, **kw):
         """Tiny GQA config for CPU tests (2 kv heads for 4 q heads)."""
-        return cls(**{**dict(vocab_size=256, max_seq_len=128, n_layer=2, n_head=4, n_kv_head=2,
-                             d_model=64, d_ff=128), **kw})
+        kw.setdefault("vocab_size", 256)
+        kw.setdefault("max_seq_len", 128)
+        return cls(n_layer=2, n_head=4, n_kv_head=2, d_model=64, d_ff=128, **kw)
 
 
 def num_params(config: LlamaConfig) -> int:
@@ -95,26 +100,32 @@ def train_flops_per_token(config: LlamaConfig, seq_len: int) -> float:
 
 
 # --------------------------------------------------------------------------- init
-def init_params(config: LlamaConfig, seed=0, device=None) -> Dict[str, Any]:
+def init_params(config: LlamaConfig, seed=0, device=None, place=None) -> Dict[str, Any]:
     """Random Llama params (normal(0.02), output projections scaled by
     1/sqrt(2L), norm scales 1) from ``seed`` (an int or a ``torch.Generator``),
-    on ``device`` (``None``: the GPU; raises when there is none)."""
+    on ``device`` (``None``: the GPU; raises when there is none; ``"meta"``:
+    shapes only), each leaf through ``place`` as in ``gpt.init_params``."""
     device = resolve_device(device)
     d, L, V, F_ = config.d_model, config.n_layer, config.vocab_size, config.d_ff
     nh, nkv, hd = config.n_head, config.n_kv_head, config.head_dim
     std = 0.02
     out_std = std / math.sqrt(2 * L)
     pd = config.param_dtype
-    if isinstance(seed, torch.Generator):
+    put = place or (lambda t: t)
+    if device.type == "meta":
+        gen = None
+    elif isinstance(seed, torch.Generator):
         gen = seed
     else:
         gen = torch.Generator(device=device).manual_seed(int(seed))
 
     def norm(shape, s):
-        return (torch.randn(shape, generator=gen, device=gen.device) * s).to(device, pd)
+        if gen is None:
+            return put(torch.empty(shape, dtype=pd, device=device))
+        return put((torch.randn(shape, generator=gen, device=gen.device) * s).to(device, pd))
 
     def ones(shape):
-        return torch.ones(shape, dtype=pd, device=device)
+        return put(torch.ones(shape, dtype=pd, device=device))
 
     return {
         "embed": norm((V, d), std),
@@ -131,6 +142,26 @@ def init_params(config: LlamaConfig, seed=0, device=None) -> Dict[str, Any]:
         },
         "final_norm": ones((d,)),
         "lm_head": norm((V, d), std),
+    }
+
+
+def param_logical_axes(config: LlamaConfig) -> Dict[str, Any]:
+    """Per-leaf logical axis names: those of ``ray_tpu/models/llama.py``."""
+    return {
+        "embed": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": ("layers", None),
+            "wq": ("layers", "embed", "heads", None),
+            "wk": ("layers", "embed", "kv_heads", None),
+            "wv": ("layers", "embed", "kv_heads", None),
+            "wo": ("layers", "heads", None, "embed"),
+            "mlp_norm": ("layers", None),
+            "w_gate": ("layers", "embed", "mlp"),
+            "w_up": ("layers", "embed", "mlp"),
+            "w_down": ("layers", "mlp", "embed"),
+        },
+        "final_norm": (None,),
+        "lm_head": ("vocab", "embed"),
     }
 
 
@@ -160,37 +191,55 @@ def _rope(x, cos, sin):
     return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
 
 
-def _block(x, layer, config: LlamaConfig, attention_fn, cos, sin, sub_remat=False):
+def _block(x, layer, config: LlamaConfig, attention_fn, cos, sin, sub_remat=False, spmd=None):
     """One Llama block. x: (B, S, D). Returns (x, None): no aux loss.
 
     With sub_remat ("save_attn"), the qkv/rope and wo/MLP halves are each
-    checkpointed while attention between them is not, as in gpt._block."""
+    checkpointed while attention between them is not, as in gpt._block; on a
+    mesh, weights are gathered and split as there."""
     cdt = config.dtype
     B, S, D = x.shape
-    nh, nkv, hd, g = config.n_head, config.n_kv_head, config.head_dim, config.group_size
+    hd, g = config.head_dim, config.group_size
 
-    def proj(h, w, heads):  # "bsd,dnh->bnsh"
-        return (h @ w.to(cdt).reshape(D, heads * hd)).view(B, S, heads, hd).transpose(1, 2)
+    def proj(h, w):  # "bsd,dnh->bnsh"
+        heads = w.shape[1]
+        return (h @ w.reshape(D, heads * hd)).view(B, S, heads, hd).transpose(1, 2)
 
     def qkv_part(x, layer):
         h = _rms_norm(x, layer["attn_norm"], config.norm_eps).to(cdt)
-        q = _rope(proj(h, layer["wq"], nh), cos, sin)
-        k = _rope(proj(h, layer["wk"], nkv), cos, sin)
-        v = proj(h, layer["wv"], nkv)
-        if g > 1:
+        wq, wk, wv = (_weight(layer, n, cdt, spmd) for n in ("wq", "wk", "wv"))
+        nh, nkv = wq.shape[1], wk.shape[1]
+        if spmd is not None:
+            h = spmd.copy_to_tp(h, nh < config.n_head)
+        q = _rope(proj(h, wq), cos, sin)
+        k = _rope(proj(h, wk), cos, sin)
+        v = proj(h, wv)
+        if nkv * g == nh and g > 1:
             # GQA: each kv head serves `group_size` query heads (jnp.repeat).
             k = torch.repeat_interleave(k, g, dim=1)
             v = torch.repeat_interleave(v, g, dim=1)
+        elif nkv * g != nh:
+            # Query heads split over the tensor group, kv heads whole: this
+            # rank's query heads take their own kv heads.
+            idx = (spmd.tp_rank * nh + torch.arange(nh, device=k.device)) // g
+            k, v = k.index_select(1, idx), v.index_select(1, idx)
         # (B, nh, S, hd), contiguous: the attention kernels take no strides.
         return q.contiguous(), k.contiguous(), v.contiguous()
 
     def out_mlp_part(x, o, layer):
-        x = x + o.transpose(1, 2).reshape(B, S, D) @ layer["wo"].to(cdt).reshape(D, D)
+        nh = o.shape[1]
+        wo = _weight(layer, "wo", cdt, spmd).reshape(nh * hd, D)
+        x = x + _out_product(o.transpose(1, 2).reshape(B, S, nh * hd), wo, cdt, spmd,
+                             nh < config.n_head)
         h = _rms_norm(x, layer["mlp_norm"], config.norm_eps).to(cdt)
-        gate = h @ layer["w_gate"].to(cdt)
-        up = h @ layer["w_up"].to(cdt)
+        w_gate = _weight(layer, "w_gate", cdt, spmd)
+        sharded = w_gate.shape[-1] < config.d_ff
+        if spmd is not None:
+            h = spmd.copy_to_tp(h, sharded)
+        gate = h @ w_gate
+        up = h @ _weight(layer, "w_up", cdt, spmd)
         h = F.silu(gate) * up
-        return x + h @ layer["w_down"].to(cdt), None
+        return x + _out_product(h, _weight(layer, "w_down", cdt, spmd), cdt, spmd, sharded), None
 
     if sub_remat:
         q, k, v = remat(qkv_part)(x, layer)
@@ -202,24 +251,21 @@ def _block(x, layer, config: LlamaConfig, attention_fn, cos, sin, sub_remat=Fals
     return out_mlp_part(x, o, layer)
 
 
-def forward(
-    params: Dict[str, Any],
-    tokens,  # (B, S) int
-    config: LlamaConfig,
-    attention_fn: Optional[Callable] = None,
-    dropout_seed: Optional[int] = None,  # accepted for API parity; Llama uses no dropout
-    mesh=None,
-):
-    """Logits (B, S, vocab) in float32. One device only."""
-    del dropout_seed
+def _forward_local(params, tokens, config: LlamaConfig, attention_fn, mesh, spmd):
+    """Logits (B, S, V) f32 on one device, or this rank's (B_local, S,
+    V_local) on a mesh."""
     cdt = config.dtype
     S = tokens.shape[1]
-    x = F.embedding(tokens, params["embed"].to(cdt))
+    if spmd is None:
+        x = F.embedding(tokens, params["embed"].to(cdt))
+    else:
+        table = spmd.gather(params["embed"].to(cdt), "embed")
+        x = spmd.embed(tokens, table, config.vocab_size)
     cos, sin = rope_tables(S, config.head_dim, config.rope_theta, x.device)
     save_attn = config.remat and config.remat_policy == "save_attn"
 
     def block_fn(x, layer, idx):
-        return _block(x, layer, config, attention_fn, cos, sin, sub_remat=save_attn)
+        return _block(x, layer, config, attention_fn, cos, sin, sub_remat=save_attn, spmd=spmd)
 
     x, _ = apply_stack(
         params["blocks"],
@@ -228,8 +274,31 @@ def forward(
         n_layer=config.n_layer,
         mesh=mesh,
     )
-    x = _rms_norm(x, params["final_norm"], config.norm_eps)
-    return _lm_head(x.to(cdt), params["lm_head"].to(cdt))
+    x = _rms_norm(x, params["final_norm"], config.norm_eps).to(cdt)
+    head = params["lm_head"].to(cdt)
+    if spmd is not None:
+        head = spmd.gather(head, "lm_head")
+        x = spmd.copy_to_tp(x, head.shape[0] < config.vocab_size)
+    return _lm_head(x, head)
+
+
+def forward(
+    params: Dict[str, Any],
+    tokens,  # (B, S) int
+    config: LlamaConfig,
+    attention_fn: Optional[Callable] = None,
+    dropout_seed: Optional[int] = None,  # accepted for API parity; Llama uses no dropout
+    mesh=None,
+):
+    """Logits (B, S, vocab) in float32; on a ``mesh``, from DTensor params
+    and tokens, a DTensor as ``gpt.forward`` returns."""
+    del dropout_seed
+    spmd = spmd_for(mesh)
+    if spmd is None:
+        return _forward_local(params, tokens, config, attention_fn, mesh, None)
+    logits = _forward_local(spmd.local(params), spmd.batch_local(tokens), config, attention_fn,
+                            mesh, spmd)
+    return spmd.global_batch(logits, config.vocab_size)
 
 
 def loss_fn(
@@ -240,11 +309,18 @@ def loss_fn(
     dropout_seed: Optional[int] = None,
     mesh=None,
 ):
-    """Causal LM cross entropy (mean over tokens)."""
+    """Causal LM cross entropy (mean over tokens; on a mesh, over the global
+    batch, the same on every rank)."""
+    spmd = spmd_for(mesh)
+    if spmd is not None:
+        params = spmd.local(params)
+        batch = {k: spmd.batch_local(v) for k, v in batch.items()}
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits = forward(params, inputs, config, attention_fn, dropout_seed, mesh)
-    return causal_lm_loss(logits, targets)
+    logits = _forward_local(params, inputs, config, attention_fn, mesh, spmd)
+    if spmd is None:
+        return causal_lm_loss(logits, targets)
+    return spmd.lm_loss(logits, targets, config.vocab_size)

@@ -4,8 +4,9 @@ Routing is the JAX package's dense one-hot dispatch and combine with a static
 per-row capacity: each batch row is a routing group, each expert takes at most
 ``C = ceil(S * capacity_factor / E)`` of its tokens, and tokens over capacity
 are dropped to the residual path. The dispatch and combine tensors are
-``(B, S, E, C)``, the expert products batched einsums over ``E``. One device:
-there is no expert mesh axis yet (ROADMAP.md Queue 1 item 3).
+``(B, S, E, C)``, the expert products batched einsums over ``E``. On a mesh
+each rank routes its own rows; there is no expert axis yet (ROADMAP.md Queue 1
+item 3).
 """
 
 from __future__ import annotations
@@ -57,9 +58,12 @@ def moe_mlp(
     proj_w,  # (E, F, D)
     proj_b,  # (E, D)
     capacity_factor: float = 1.25,
+    batch_mean=None,
 ) -> Tuple[Any, Any]:
     """Returns (out (B, S, D), aux_loss scalar f32). The aux loss is Switch's
-    ``E * sum_e assign_frac_e * prob_frac_e``."""
+    ``E * sum_e assign_frac_e * prob_frac_e``. On a mesh, x is this rank's
+    batch shard and ``batch_mean`` takes the two fractions' means over the
+    shards, so the aux loss is the global batch's."""
     B, S, D = x.shape
     E = router_w.shape[1]
     cdt = x.dtype
@@ -81,22 +85,29 @@ def moe_mlp(
 
     assign_frac = F.one_hot(r.expert_idx, E).float().mean((0, 1))  # (E,)
     prob_frac = r.probs.mean((0, 1))  # (E,)
+    if batch_mean is not None:
+        assign_frac, prob_frac = batch_mean(assign_frac), batch_mean(prob_frac)
     aux = E * torch.sum(assign_frac * prob_frac)
     return out, aux
 
 
 def init_moe_params(gen, n_layer: int, d_model: int, ff_dim: int, n_experts: int,
-                    param_dtype, device) -> Dict[str, Any]:
+                    param_dtype, device, place=None) -> Dict[str, Any]:
     """Stacked per-layer MoE params (router and per-expert FFN weights), drawn
-    from the ``torch.Generator`` ``gen`` onto ``device``."""
+    from the ``torch.Generator`` ``gen`` onto ``device`` (``gen`` None: empty
+    leaves, for shapes on the meta device), each through ``place``."""
     std = 0.02
     proj_std = std / math.sqrt(2 * n_layer)
+    put = place or (lambda t: t)
 
     def norm(shape, s):
-        return (torch.randn(shape, generator=gen, device=gen.device) * s).to(device, param_dtype)
+        if gen is None:
+            return put(torch.empty(shape, dtype=param_dtype, device=device))
+        return put((torch.randn(shape, generator=gen, device=gen.device) * s)
+                   .to(device, param_dtype))
 
     def zeros(shape):
-        return torch.zeros(shape, dtype=param_dtype, device=device)
+        return put(torch.zeros(shape, dtype=param_dtype, device=device))
 
     L, d, F_, E = n_layer, d_model, ff_dim, n_experts
     return {
@@ -105,4 +116,15 @@ def init_moe_params(gen, n_layer: int, d_model: int, ff_dim: int, n_experts: int
         "fc_b": zeros((L, E, F_)),
         "proj_w": norm((L, E, F_, d), proj_std),
         "proj_b": zeros((L, E, d)),
+    }
+
+
+def moe_param_logical_axes() -> Dict[str, Tuple]:
+    """Per-leaf logical axes of the MoE params: those of ``ray_tpu/models/moe.py``."""
+    return {
+        "router_w": ("layers", "embed", None),
+        "fc_w": ("layers", "expert", "embed", "mlp"),
+        "fc_b": ("layers", "expert", "mlp"),
+        "proj_w": ("layers", "expert", "mlp", "embed"),
+        "proj_b": ("layers", "expert", "embed"),
     }

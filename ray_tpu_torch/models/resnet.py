@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._private.accelerators.gpu import resolve_device
 from ray_tpu_torch.models.gpt import _lm_head
+from ray_tpu_torch.parallel.spmd import spmd_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,23 +108,49 @@ def _spec_map(fn, spec):
     return fn(*spec)
 
 
-def init_params(config: ResNetConfig, seed=0, device=None) -> Dict[str, Any]:
+def init_params(config: ResNetConfig, seed=0, device=None, place=None) -> Dict[str, Any]:
     """Random ResNet params from ``seed`` (an int or a ``torch.Generator``) on
-    ``device`` (``None``: the GPU; raises when there is none)."""
+    ``device`` (``None``: the GPU; raises when there is none; ``"meta"``:
+    shapes only), each leaf through ``place`` as in ``gpt.init_params``."""
     device = resolve_device(device)
     pd = config.param_dtype
-    if isinstance(seed, torch.Generator):
+    put = place or (lambda t: t)
+    if device.type == "meta":
+        gen = None
+    elif isinstance(seed, torch.Generator):
         gen = seed
     else:
         gen = torch.Generator(device=device).manual_seed(int(seed))
 
     def make(shape, init):
         if init in ("ones", "zeros"):
-            return torch.full(shape, 1.0 if init == "ones" else 0.0, dtype=pd, device=device)
+            return put(torch.full(shape, 1.0 if init == "ones" else 0.0, dtype=pd, device=device))
+        if gen is None:
+            return put(torch.empty(shape, dtype=pd, device=device))
         std = math.sqrt(2.0 / (shape[0] * shape[1] * shape[2])) if init == "conv" else 0.01
-        return (torch.randn(shape, generator=gen, device=gen.device) * std).to(device, pd)
+        return put((torch.randn(shape, generator=gen, device=gen.device) * std).to(device, pd))
 
     return _spec_map(make, _param_spec(config))
+
+
+def param_logical_axes(config: ResNetConfig) -> Dict[str, Any]:
+    """Those of ``ray_tpu/models/resnet.py``: conv kernels shard their
+    output-channel dim over ``mlp``; the classifier head shards embed ->
+    vocab like an LM head."""
+
+    def ax(path, spec):
+        if isinstance(spec, dict):
+            return {k: ax(path + (k,), v) for k, v in spec.items()}
+        if isinstance(spec, list):
+            return [ax(path + (i,), v) for i, v in enumerate(spec)]
+        shape = spec[0]
+        if path[-2:] == ("head", "w"):
+            return ("embed", "vocab")
+        if len(shape) == 4:  # conv kernel (kh, kw, cin, cout)
+            return (None, None, None, "mlp")
+        return (None,) * len(shape)
+
+    return ax((), _param_spec(config))
 
 
 def num_params(config: ResNetConfig) -> int:
@@ -238,16 +265,18 @@ def _block_fwd(x, b, config: ResNetConfig, stride: int):
     return F.relu((h + residual.float()).to(cdt))
 
 
-def forward(
-    params: Dict[str, Any],
-    images,  # (B, H, W, 3) float
-    config: ResNetConfig,
-    attention_fn=None,  # API parity with the LM families (unused)
-    dropout_seed=None,
-    mesh=None,
-):
-    """Class logits (B, num_classes) in float32."""
-    del attention_fn, dropout_seed, mesh
+def _forward_local(params, images, config: ResNetConfig, spmd):
+    """Logits (B, num_classes) f32 from this rank's shards (all of them off a
+    mesh)."""
+    if spmd is not None:
+        if spmd.tp > 1:
+            raise NotImplementedError(
+                "ResNet with channels split over the tensor axis is not ported yet: "
+                "ROADMAP.md Queue 1 item 3"
+            )
+        params, images = spmd.local(params), spmd.batch_local(images)
+        params = {**params, "head": {**params["head"],
+                                     "w": spmd.gather(params["head"]["w"], "head.w")}}
     cdt = config.dtype
     stem = params["stem"]
     x = _conv(images, stem["conv"], 2, cdt)
@@ -262,6 +291,24 @@ def forward(
     return _lm_head(x.to(cdt), params["head"]["w"].to(cdt).t()) + params["head"]["b"].float()
 
 
+def forward(
+    params: Dict[str, Any],
+    images,  # (B, H, W, 3) float
+    config: ResNetConfig,
+    attention_fn=None,  # API parity with the LM families (unused)
+    dropout_seed=None,
+    mesh=None,
+):
+    """Class logits (B, num_classes) in float32. On a mesh (data and fsdp
+    parallelism: the head is gathered over fsdp; channels split over the
+    tensor axis are not ported), from this rank's shards, returned as a
+    DTensor with the batch over (data, fsdp)."""
+    del attention_fn, dropout_seed
+    spmd = spmd_for(mesh)
+    logits = _forward_local(params, images, config, spmd)
+    return logits if spmd is None else spmd.global_batch(logits)
+
+
 def loss_fn(
     params: Dict[str, Any],
     batch: Dict[str, Any],  # {"images": (B, H, W, 3), "labels": (B,)}
@@ -270,8 +317,13 @@ def loss_fn(
     dropout_seed=None,
     mesh=None,
 ):
-    """Softmax cross entropy over classes (mean over the batch)."""
-    logits = forward(params, batch["images"], config, attention_fn, dropout_seed, mesh)
+    """Softmax cross entropy over classes (mean over the batch; on a mesh,
+    over the global batch)."""
+    del attention_fn, dropout_seed
+    spmd = spmd_for(mesh)
+    logits = _forward_local(params, batch["images"], config, spmd)
+    labels = batch["labels"] if spmd is None else spmd.batch_local(batch["labels"])
     lse = torch.logsumexp(logits, dim=-1)
-    at = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
-    return (lse - at).mean()
+    at = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = (lse - at).mean()
+    return loss if spmd is None else spmd.batch_mean(loss)

@@ -2,11 +2,11 @@
 
 A model supplies ``block_fn(x, layer_params, idx) -> (x, aux)``; this module
 runs it over the stacked per-layer params as a Python loop (the counterpart of
-``lax.scan``), on one device, and sums the blocks' ``aux`` (MoE's
-load-balancing loss; None from a block that has none) as the JAX stack does.
-``remat`` wraps a block in activation checkpointing under one of the JAX
-package's remat policies. Pipeline and context parallelism are not ported yet
-(ROADMAP.md Queue 1 item 3).
+``lax.scan``) and sums the blocks' ``aux`` (MoE's load-balancing loss; None
+from a block that has none) as the JAX stack does. ``remat`` wraps a block in
+activation checkpointing under one of the JAX package's remat policies. On a
+mesh the blocks run on this rank's shards (``parallel/spmd.py``); a mesh with
+pipeline, context or expert parallelism raises (ROADMAP.md Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -22,16 +22,7 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch.ops.flash_attention import flash_attention, xla_attention
-
-
-def check_single_device(mesh) -> None:
-    """The port runs on one device: a mesh (a torch ``DeviceMesh``) of more
-    than one raises."""
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(
-            "multi-device meshes (data/FSDP/tensor/pipeline/context parallelism) are "
-            "not ported yet: ROADMAP.md Queue 1 item 3"
-        )
+from ray_tpu_torch.parallel.mesh import check_mesh
 
 
 def unstack_layers(blocks: Dict[str, Any], n_layer: int) -> list:
@@ -64,8 +55,9 @@ def apply_stack(
     mesh=None,
 ):
     """Run ``block_fn`` over the layers in order; returns ``(x, aux_sum)``,
-    ``aux_sum`` an f32 scalar."""
-    check_single_device(mesh)
+    ``aux_sum`` an f32 scalar. On a mesh, ``blocks`` and ``x`` are this rank's
+    shards."""
+    check_mesh(mesh)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for idx, layer in enumerate(unstack_layers(blocks, n_layer)):
         x, aux = block_fn(x, layer, idx)
@@ -113,9 +105,3 @@ def resolve_attention(q, k, v, attention_mode: str, attention_fn: Optional[Calla
         return xla_attention(q, k, v, causal=True)
     raise ValueError(f"unknown attention mode {attention_mode!r}")
 
-
-def causal_lm_loss(logits, targets):
-    """Cross entropy as logsumexp - logit[target], mean over tokens."""
-    lse = torch.logsumexp(logits, dim=-1)
-    at_target = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return (lse - at_target).mean()

@@ -215,6 +215,7 @@ class BackendExecutor:
         config: Dict[str, Any],
         checkpoint: Optional[Checkpoint] = None,
         dataset_shards: Optional[List[Dict[str, Any]]] = None,
+        mesh_builder: Optional[Callable] = None,
     ):
         try:
             self._backend.on_training_start(self, self._backend_config)
@@ -235,6 +236,7 @@ class BackendExecutor:
                 dataset_shards=(dataset_shards or [{}] * len(self._ranks))[
                     info["world_rank"]
                 ],
+                mesh_builder=mesh_builder,
                 gang_id=self._gang_id,
                 **self._trial_info,
             )

@@ -62,6 +62,9 @@ class SessionArgs:
     experiment_name: str = ""
     checkpoint: Optional[Checkpoint] = None
     dataset_shards: Dict[str, Any] = field(default_factory=dict)
+    # () -> DeviceMesh, run in the session thread the first time the loop
+    # asks for the mesh (session.get_mesh()).
+    mesh_builder: Optional[Callable] = None
     # Stable id shared by every rank (and every restart) of one fit() — the
     # `gang` tag on train metrics and the training_report KV key.
     gang_id: str = ""
@@ -81,6 +84,7 @@ class _TrainSession:
         self.experiment_name = args.experiment_name
         self.loaded_checkpoint = args.checkpoint
         self.dataset_shards = args.dataset_shards
+        self._mesh = None
         self.gang_id = args.gang_id or args.trial_id or "default"
         self._clock = None  # StepClock, built in-thread by _run
         self._q: "queue.Queue[TrainingResult]" = queue.Queue(maxsize=1)
@@ -91,6 +95,19 @@ class _TrainSession:
         self._stop = threading.Event()
         self.drained = False
         self._reported_steps = 0
+
+    @property
+    def mesh(self):
+        """The run's ``DeviceMesh``: built by the backend's mesh builder the
+        first time the loop asks (in this session's thread, on the gang's
+        process group), then kept. None without a builder."""
+        if self._mesh is None and self.args.mesh_builder is not None:
+            if self._clock is not None:
+                self._clock.mark("compile")
+            self._mesh = self.args.mesh_builder()
+            if self._clock is not None:
+                self._clock.mark("step_exec")
+        return self._mesh
 
     # ----------------------------------------------------------- thread side
     def _run(self):

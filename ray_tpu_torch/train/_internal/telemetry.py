@@ -38,11 +38,16 @@ _COLLECTIVE_DONORS = ("step_exec", "data_wait", "compile", "checkpoint")
 
 
 def _coll_snap():
-    """Process totals of timed collective-op seconds and arrival offsets.
-    Zero until the port has a timed collective API (ROADMAP.md Queue 1 item
-    5): torch.distributed calls in the loop are not timed, so their time
-    stays in the phase that issued them."""
-    return (0.0, 0.0)
+    """Process totals of the seconds spent in ``ray_tpu_torch.util.collective``
+    ops and of their arrival offsets. A bare ``torch.distributed`` call in the
+    loop (a DDP or mesh step's own collectives) is not timed: its time stays
+    in the phase that issued it."""
+    from ray_tpu_torch.util.collective import collective
+
+    return (
+        collective._STATS["time_s"],
+        collective._STATS["arrival_offset_s"],
+    )
 
 
 def _rdzv_snap() -> float:

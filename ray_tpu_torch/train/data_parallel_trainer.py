@@ -103,6 +103,7 @@ class DataParallelTrainer(BaseTrainer):
         gang_id: str,
         ckpt_mgr: CheckpointManager,
         latest_ckpt: Optional[Checkpoint],
+        mesh_builder,
     ) -> Optional[Checkpoint]:
         """Re-form an elastic gang in place and restart its sessions from the
         newest checkpoint. Returns the checkpoint resumed from; raises
@@ -117,6 +118,7 @@ class DataParallelTrainer(BaseTrainer):
             self._train_loop_config,
             checkpoint=resume_ckpt,
             dataset_shards=self._dataset_shards(info["new_world"]),
+            mesh_builder=mesh_builder,
         )
         # Everything since the last round fold — detection, drain, respawn,
         # re-rendezvous, session re-init — is the resize badput window; its
@@ -166,6 +168,10 @@ class DataParallelTrainer(BaseTrainer):
         failures = 0
         tune_session = air_session._get_session() if self._inside_tune else None
 
+        mesh_builder = None
+        if hasattr(self.backend_config, "mesh_builder"):
+            mesh_builder = self.backend_config.mesh_builder(self.scaling_config)
+
         # One gang id (and one goodput ledger) per fit: restarts keep both so
         # recovery shows up as badput of the same run, not a fresh ledger.
         gang_id = (trial_info or {}).get("trial_id") or (
@@ -192,6 +198,7 @@ class DataParallelTrainer(BaseTrainer):
                     self._train_loop_config,
                     checkpoint=latest_ckpt,
                     dataset_shards=self._dataset_shards(),
+                    mesh_builder=mesh_builder,
                 )
                 if ledger is not None:
                     if recovering:
@@ -220,7 +227,7 @@ class DataParallelTrainer(BaseTrainer):
                         # it beats the last disk persist). NOT a failure.
                         latest_ckpt = self._resize_and_resume(
                             executor, sig.reason, sig.grow, ledger, gang_id,
-                            ckpt_mgr, latest_ckpt,
+                            ckpt_mgr, latest_ckpt, mesh_builder,
                         )
                         continue
                     if results is None:
@@ -247,7 +254,7 @@ class DataParallelTrainer(BaseTrainer):
                         # Capacity returned: re-expand toward the target.
                         latest_ckpt = self._resize_and_resume(
                             executor, "capacity returned", True, ledger,
-                            gang_id, ckpt_mgr, latest_ckpt,
+                            gang_id, ckpt_mgr, latest_ckpt, mesh_builder,
                         )
                 executor.shutdown()
                 if ledger is not None:

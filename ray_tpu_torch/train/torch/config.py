@@ -8,15 +8,21 @@ rank 0's node hosts the TCP store; every worker enters init_process_group
 concurrently (all-or-nothing gang).
 
 The backend defaults to NCCL when the gang holds GPUs (`ScalingConfig(
-use_gpu=True)`) and to gloo otherwise. A 1-worker gang makes no process group.
-Every process group is given its address, world size and rank explicitly
-(`tcp://<rank 0's node>:<free port>`).
+use_gpu=True)`) and to gloo otherwise. A 1-worker gang makes no process group
+until its loop asks for the mesh. Every process group is given its address,
+world size and rank explicitly (`tcp://<rank 0's node>:<free port>`).
+
+`TorchConfig.mesh_builder` (the counterpart of `JaxConfig.mesh_builder`,
+`ray_tpu/train/jax/config.py`) lays the gang's ranks out as the
+`ScalingConfig.mesh` axes, a `DeviceMesh` built in the session thread, on the
+GPU (it raises without one) unless `TorchConfig(device="cpu")` asks for the CPU.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import ray_tpu_torch
 from ray_tpu_torch.train.backend import Backend, BackendConfig
@@ -62,14 +68,36 @@ def _shutdown_torch_process_group():
         dist.destroy_process_group()
 
 
+def _build_mesh(mesh_axes: Optional[Dict[str, int]], backend: str, device):
+    """Session-thread mesh builder: the gang's process group -> DeviceMesh
+    (pure data parallelism without ``mesh_axes``). A one-worker gang, which
+    has no process group, makes a world of one first."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshSpec
+
+    if not dist.is_initialized():
+        _init_torch_process_group("127.0.0.1", _free_port_fn(), 0, 1, backend, 60.0)
+    world = dist.get_world_size()
+    spec = MeshSpec.from_dict(mesh_axes) if mesh_axes else MeshSpec.for_data_parallel(world)
+    if spec.num_devices != world:
+        raise ValueError(
+            f"ScalingConfig.mesh {mesh_axes} wants {spec.num_devices} devices "
+            f"but the gang has {world}"
+        )
+    return spec.build(device)
+
+
 @dataclass
 class TorchConfig(BackendConfig):
     """backend: "nccl" or "gloo"; None (default) picks "nccl" when the gang
     holds GPUs, else "gloo". init_timeout_s: gang-join timeout for
-    init_process_group."""
+    init_process_group. device: where ``session.get_mesh()`` lays the mesh;
+    None (default) is the GPU, and ``"cpu"`` must be asked for."""
 
     backend: Optional[str] = None
     init_timeout_s: float = 120.0
+    device: Optional[str] = None
 
     def resolve_backend(self, resources_per_worker) -> str:
         if self.backend is not None:
@@ -79,6 +107,19 @@ class TorchConfig(BackendConfig):
     @property
     def backend_cls(self):
         return _TorchBackend
+
+    def mesh_builder(self, scaling_config) -> Callable:
+        """The session thread's mesh builder for a run of ``scaling_config``:
+        its mesh axes over the gang, on ``self.device`` (the GPU unless the
+        CPU is asked for)."""
+        axes = None
+        if scaling_config.mesh is not None:
+            from ray_tpu_torch.parallel import AXIS_ORDER
+
+            spec = scaling_config.mesh_spec()
+            axes = {a: s for a, s in zip(AXIS_ORDER, spec.shape) if s > 1}
+        backend = self.resolve_backend(scaling_config._resources)
+        return functools.partial(_build_mesh, axes, backend, self.device)
 
 
 class _TorchBackend(Backend):

@@ -208,3 +208,49 @@ def test_rl_iteration_reads_a_result():
                                    "time_this_iter_s": 0.6}, 512)
     assert row["env_steps_per_s"] == 1024 and row["learn_s"] is None
     assert row["updates_per_s"] is None and row["return"] is None
+
+
+def test_kernels_line_check_needs_the_mesh_gang_path():
+    paths = PATHS + ["mesh_gang"]
+    per_path = {"main_path": 156, "trainer": 156, "llama": 32, "moe": 96, "mesh_gang": 48}
+    assert chip_smoke.check_kernels_line({"kernels": [_kernel(launches_per_path=per_path)]},
+                                         paths) == []
+    assert "flash_fwd: no launch on mesh_gang" in chip_smoke.check_kernels_line(
+        {"kernels": [_kernel()]}, paths)
+
+
+def test_collective_ms_reads_the_gloo_calls_of_a_profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.util.collective.collective_group.nccl_group import NCCLGroup
+
+    g = NCCLGroup(1, 0, "chip_smoke_profile", device="cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            g.allreduce(torch.ones(1 << 16))
+    out = chip_smoke.collective_ms_per_step(prof, 2)
+    assert out["host_ms"] > 0 and out["nccl_kernel_ms"] == 0
+    g.destroy()
+
+
+def test_mesh_gang_loop_runs_on_the_cpu():
+    # The mesh_gang phase's gang at a toy size on the CPU: get_mesh() over
+    # two gloo ranks, each rank's report through the KV store, the steps'
+    # losses the same on both ranks, nothing left after shutdown.
+    from ray_tpu_torch.air import ScalingConfig
+
+    cut = dict(n_layer=2, n_head=2, d_model=64, vocab_size=256, max_seq_len=128)
+    config = {"model": "gpt2_small", "cut": cut, "global_batch": 4, "seq": 32, "warmup": 1,
+              "timed": 1, "device": "cpu"}
+    out = chip_smoke.run_mesh_gang(ScalingConfig(num_workers=2, mesh={"data": 2}), "gloo",
+                                   config, "test_mesh_gang")
+    r0, r1 = out["ranks"]
+    assert (r0["rank"], r1["rank"], r0["world"], r0["backend"]) == (0, 1, 2, "gloo")
+    from ray_tpu_torch.parallel import AXIS_ORDER
+
+    assert r0["mesh_is_device_mesh"] and r0["mesh_dim_names"] == list(AXIS_ORDER)
+    assert r0["mesh_shape"] == [2, 1, 1, 1, 1, 1]
+    assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 2
+    assert r0["tokens_per_gpu_per_step"] == 2 * 32
+    assert r0["collective_ms_per_step"]["host_ms"] > 0
+    assert not out["leftover_session_dirs"] and not out["leftover_worker_pids"]

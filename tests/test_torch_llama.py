@@ -38,10 +38,10 @@ PRESETS = ["nano", "llama2_7b", "llama2_13b", "llama3_8b"]
 
 def _configs(heads="gqa", dtype="f32", **kw):
     jd, td = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    # The JAX nano preset fixes its head counts, so the MHA variant is built
+    # Both nano presets fix their head counts, so the MHA variant is built
     # from the dataclass.
     jcfg = dataclasses.replace(jllama.LlamaConfig.nano(dtype=jd, **kw), **HEADS[heads])
-    return jcfg, tllama.LlamaConfig.nano(dtype=td, **HEADS[heads], **kw)
+    return jcfg, dataclasses.replace(tllama.LlamaConfig.nano(dtype=td, **kw), **HEADS[heads])
 
 
 @pytest.fixture(scope="module")
@@ -135,7 +135,7 @@ def test_param_and_flop_counts_match(preset):
 
 
 def test_llama3_8b_depth_cut():
-    cfg = tllama.LlamaConfig.llama3_8b(n_layer=4)
+    cfg = dataclasses.replace(tllama.LlamaConfig.llama3_8b(), n_layer=4)
     assert (cfg.n_layer, cfg.d_model, cfg.n_head, cfg.n_kv_head, cfg.head_dim, cfg.d_ff,
             cfg.vocab_size, cfg.rope_theta) == (4, 4096, 32, 8, 128, 14336, 128256, 500000.0)
     assert tllama.num_params(cfg) == 1_923_125_248  # 2 * V * d + 4 * 218_112_000 + d
