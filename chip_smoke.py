@@ -46,6 +46,20 @@ exits non-zero and prints no result.
    the main path's, 12 launches of each kernel per step on each rank, the
    node's ``GPU`` 1.0 with 0.0 free during the fit, nothing left after
    ``shutdown()``; step ms per rank, collective ms and peak memory printed.
+6c. pipeline and context: ``ring_check``, the ring's block loop and merge
+   (``parallel/ring_attention.py``: ``ring_forward``/``ring_backward`` over a
+   ``VirtualRing``, the distributed ring's code minus the sends) over C
+   slices of one sequence at Llama 3 8B's attention (bh 32, S 8192, d 128, C
+   4), GPT-2 small's (bh 192, S 1024, d 64, C 2) in bf16 and one f32 case:
+   output and the three gradients against the plain ring (f32 einsums,
+   autograd) and one full-sequence kernel call, and the block kernels'
+   summed device time beside the full call's; then ``pipe_ctx_gang``, the
+   main path's workload through ``TorchTrainer`` with two 0.5-GPU ranks
+   over gloo on ``{"pipeline": 2}`` (GPipe, M 4) and on ``{"context": 2}``
+   (the ring, s_local 512): first loss and grad norm against the main
+   path's within mesh_gang's limits, each rank's launches per step (24 + 24
+   a stage; 12 + 12 and 24 + 24 on context ranks 0 and 1), peak memory, and
+   nothing left after ``shutdown()``.
 7. the Llama shape: both bf16 kernels at Llama 3 8B's attention (bh 32,
    S 8192, d 128, causal) against their plain versions
    (``kernel_check_llama``), and their times beside the bounds, the plain
@@ -75,8 +89,9 @@ exits non-zero and prints no result.
    iterations) and ``ppo_two_learners`` (two remote learners holding 0.5 GPU
    each, weights equal after each round), and ``rl_shutdown`` (nothing left
    after ``shutdown()``, no attention kernel launched by these phases).
-10. a ``kernels`` line (launches per path: main_path, trainer, mesh_gang
-   (rank 0's), llama, moe, remat_dots; times at the Llama shape too), checked for the keys the contract names,
+10. a ``kernels`` line (launches per path: main_path, trainer, mesh_gang,
+   pipeline_gang, context_gang (rank 0's), llama, moe, remat_dots; times at
+   the Llama shape too), checked for the keys the contract names,
    then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -155,6 +170,34 @@ RESNET_F32_LOSS_TOL, RESNET_INIT_LOSS_TOL = 2e-2, 0.5
 DOTS_TIMED = 3
 # The mesh_gang phase: 1 warmup and MESH_GANG_TIMED timed steps on each rank.
 MESH_GANG_TIMED = 3
+# The ring_check phase: the ring's block loop and merge over C virtual slices
+# of one sequence (ring_attention.VirtualRing), causal, at (name, bh, S, d, C,
+# dtype): Llama 3 8B's attention, GPT-2 small's (its past block is the bf16
+# non-causal kernel at d 64), and one f32 case. Each is held against the
+# plain ring (f32 einsums, autograd) and one full-sequence kernel call.
+# bf16: o, dq, dk, dv as ||a - b|| / ||b|| within RING_BF16_REL. The ring
+# rounds each block's o (and each block's dq, dk, dv) to bf16 before the f32
+# merge (sum), then rounds the result once more: up to C + 1 roundings of
+# relative size 2^-9 where the full call rounds once, about 2.5e-3 at C 4;
+# against the plain ring the kernels' bf16 p and ds add about as much. A
+# dropped or misplaced block moves these by 1e-1 or more. lse (f32, against
+# the full call) within RING_LSE_TOL: the same logsumexp summed in another
+# order. f32: the kernel check's limits (F32_FWD_TOL, F32_BWD_TOL), abs.
+RING_CASES = (("llama3_8b", 32, 8192, 128, 4, "bfloat16"),
+              ("gpt2_small", 192, 1024, 64, 2, "bfloat16"),
+              ("f32", 8, 2048, 64, 4, "float32"))
+RING_BF16_REL, RING_LSE_TOL = 1e-2, 1e-4
+# The pipe_ctx_gang phase: the main path's workload through TorchTrainer on
+# {pipeline 2} (M 4: 4-row microbatches, 6 layers a stage) and {context 2}
+# (s_local 512), two 0.5-GPU ranks over gloo, 1 warmup and PIPE_CTX_TIMED
+# timed steps. Its first loss and grad norm are held to the main path's
+# with mesh_gang's limits (LOSS_TOL, GRAD_NORM_RTOL): a pipeline changes no
+# arithmetic inside a microbatch (the loss becomes a mean of 4 means and the
+# gradients a sum of 4 parts, in f32); the ring rounds each block's o to bf16
+# before the merge, one more rounding of relative size 2^-9 than the main
+# path's, of the size by which the main path and plain attention differ
+# (held to the same limits in main_path).
+PIPE_CTX_TIMED = 2
 
 
 def emit(obj):
@@ -742,6 +785,43 @@ def collective_ms_per_step(prof, steps):
     return {"host_ms": host / steps, "nccl_kernel_ms": dev / steps}
 
 
+def span_overlap_ms(spans_a, spans_b):
+    """(ms in which a span of each list runs, ms of a's union, ms of b's
+    union), from (start, end) spans in microseconds."""
+
+    def union(spans):
+        out = []
+        for a, b in sorted(spans):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        return out
+
+    ua, ub = union(spans_a), union(spans_b)
+    both = sum(max(0, min(b, d) - max(a, c)) for a, b in ua for c, d in ub)
+    return both / 1e3, sum(b - a for a, b in ua) / 1e3, sum(b - a for a, b in ub) / 1e3
+
+
+def p2p_overlap_ms(prof):
+    """Device ms of one profiled step in which an NCCL kernel and an
+    attention kernel run at once (the ring's rotation beside its blocks),
+    and the NCCL kernels' and attention kernels' own ms."""
+    from torch.autograd import DeviceType
+
+    nccl, attn = [], []
+    for e in prof.events():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "nccl" in e.name.lower():
+            nccl.append(span)
+        elif any(k in e.name for k in ATTENTION_KERNELS):
+            attn.append(span)
+    both, nccl_ms, attn_ms = span_overlap_ms(nccl, attn)
+    return {"overlap_ms": both, "nccl_ms": nccl_ms, "attention_ms": attn_ms}
+
+
 def mesh_train_loop(config):
     """The per-worker loop of a mesh gang: ``session.get_mesh()``, the GPT-2
     or Llama workload sharded over it (weights from seed 0, the batch from
@@ -792,6 +872,7 @@ def mesh_train_loop(config):
         state, _ = step(state, batch)
         torch.cuda.synchronize()
     run["collective_ms_per_step"] = collective_ms_per_step(prof, 1)
+    run["p2p_overlap_per_step"] = p2p_overlap_ms(prof)
     if dist.get_rank() == 0:
         run["node_gpu"] = ray_tpu_torch.cluster_resources().get("GPU")
         run["node_gpu_available"] = ray_tpu_torch.available_resources().get("GPU")
@@ -929,10 +1010,214 @@ def phase_mesh_gang(smi, main_loss, main_gnorm):
     return r0["launches"]
 
 
-def check_launches(path, run, n_layer):
-    for i, per_step in enumerate(run["launches_per_step"]):
-        require(len(per_step) == 2 and all(n == n_layer for n in per_step.values()),
-                f"{path} step {i}: kernel launches {per_step}, expected {n_layer} each")
+def ring_slices(x, n):
+    """n contiguous slices (bh, S/n, d) of x (bh, S, d) along the sequence."""
+    return [c.contiguous() for c in x.split(x.shape[1] // n, dim=1)]
+
+
+def phase_ring_check(smi, device=None):
+    """The ring's block loop and merge (``ring_forward``/``ring_backward``
+    over a ``VirtualRing``: the distributed ring's code, minus the sends) on
+    one card at each of ``RING_CASES``, against the plain ring and one
+    full-sequence kernel call on the same inputs; then the block kernels'
+    summed device time beside the one call's, and the whole ring's.
+    ``device="cpu"`` is a rehearsal at the cases' shapes cut by 16 in bh
+    and S: the kernels' plain versions, no times."""
+    import torch
+
+    from ray_tpu_torch.ops.flash_attention import _bwd, _delta, _fwd
+    from ray_tpu_torch.parallel.ring_attention import (VirtualRing, plain_ring, ring_backward,
+                                                       ring_forward)
+
+    on_cpu = device == "cpu"
+    dev = torch.device("cpu") if on_cpu else torch.device("cuda", torch.cuda.current_device())
+    lines = []
+    for i, (name, bh, seq, hd, n, dtype_name) in enumerate(RING_CASES):
+        if on_cpu:
+            bh, seq = max(bh // 16, 1), seq // 16
+        dtype = getattr(torch, dtype_name)
+        g = torch.Generator(device=dev).manual_seed(20 + i)
+        q, k, v, do = (torch.randn((bh, seq, hd), generator=g, device=dev).to(dtype)
+                       for _ in range(4))
+        scale, ranks = hd ** -0.5, list(range(n))
+        qs, ks, vs, dos = (ring_slices(x, n) for x in (q, k, v, do))
+        os_, lses = ring_forward(qs, ks, vs, ranks, n, True, scale, VirtualRing())
+        grads = ring_backward(qs, ks, vs, os_, lses, dos, ranks, n, True, scale, VirtualRing())
+        ring = [torch.cat(x, 1) for x in (os_, *grads)]
+        ring_lse = torch.cat(lses, 1)
+        o_full, lse_full = _fwd(q, k, v, True, scale)
+        full = [o_full, *_bwd(q, k, v, o_full, lse_full, do, True, scale)]
+        # The plain ring, one virtual rank at a time (its f32 graph at Llama's
+        # shape is ~8 GB a rank), the gradients summed over the ranks.
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        plain_o, plain_g = [], [torch.zeros(x.shape, dtype=torch.float32, device=dev)
+                                for x in leaves]
+        for my in ranks:
+            qp, kp, vp = (list(x.split(seq // n, 1)) for x in leaves)
+            o = plain_ring(qp[my], kp[my], vp[my], my, n, True, scale,
+                           lambda step, _k, _v, my=my, kp=kp, vp=vp:
+                           (kp[(my - step - 1) % n], vp[(my - step - 1) % n]))
+            for acc, gr in zip(plain_g, torch.autograd.grad(o, leaves, dos[my])):
+                acc += gr.float()
+            plain_o.append(o.detach())
+        plain = [torch.cat(plain_o, 1), *plain_g]
+        names = ("o", "dq", "dk", "dv")
+        line = {"phase": "ring_check", "case": name, "shape": [bh, seq, hd], "ring": n,
+                "dtype": dtype_name, "causal": True, "blocks": n * (n + 1) // 2,
+                "lse_max_abs_err_vs_full": (ring_lse - lse_full).abs().max().item()}
+        for ref_name, ref in (("plain_ring", plain), ("full_call", full)):
+            line[f"max_abs_err_vs_{ref_name}"] = dict(zip(names, [
+                (a.float() - b.float()).abs().max().item() for a, b in zip(ring, ref)]))
+            line[f"rel_err_vs_{ref_name}"] = dict(zip(names, [
+                rel_err(a, b) for a, b in zip(ring, ref)]))
+        if dtype == torch.float32:
+            tol = dict(zip(names, [F32_FWD_TOL] + [F32_BWD_TOL] * 3))
+            ok = all(line[f"max_abs_err_vs_{r}"][x] <= tol[x]
+                     for r in ("plain_ring", "full_call") for x in names)
+            line["tol_abs"] = tol
+            ok = ok and line["lse_max_abs_err_vs_full"] <= F32_FWD_TOL
+        else:
+            ok = all(line[f"rel_err_vs_{r}"][x] <= RING_BF16_REL
+                     for r in ("plain_ring", "full_call") for x in names)
+            line["tol_rel"], line["tol_lse"] = RING_BF16_REL, RING_LSE_TOL
+            ok = ok and line["lse_max_abs_err_vs_full"] <= RING_LSE_TOL
+        del plain, plain_o, plain_g, leaves
+        if not on_cpu:
+            from ray_tpu_torch.ops.flash_attention import _bwd_cuda
+
+            deltas = [_delta(o, d_) for o, d_ in zip(os_, dos)]
+            pairs = [(my, (my - step) % n) for step in range(n) for my in ranks
+                     if (my - step) % n <= my]
+
+            def blocks_fwd():
+                for my, src in pairs:
+                    _fwd(qs[my], ks[src], vs[src], src == my, scale)
+
+            def blocks_bwd():
+                for my, src in pairs:
+                    _bwd_cuda(qs[my], ks[src], vs[src], dos[my], lses[my], deltas[my],
+                              src == my, scale)
+
+            delta_full = _delta(o_full, do)
+            line["ms"] = {
+                "blocks_fwd": cuda_ms(blocks_fwd, calls=5, reps=5),
+                "full_call_fwd": cuda_ms(lambda: _fwd(q, k, v, True, scale), calls=5, reps=5),
+                "ring_fwd": cuda_ms(lambda: ring_forward(qs, ks, vs, ranks, n, True, scale,
+                                                         VirtualRing()), calls=5, reps=5),
+                "blocks_bwd": cuda_ms(blocks_bwd, calls=5, reps=5),
+                "full_call_bwd": cuda_ms(lambda: _bwd_cuda(q, k, v, do, lse_full, delta_full,
+                                                           True, scale), calls=5, reps=5),
+                "ring_bwd": cuda_ms(lambda: ring_backward(qs, ks, vs, os_, lses, dos, ranks, n,
+                                                          True, scale, VirtualRing()),
+                                    calls=5, reps=5)}
+            line["timing"] = ("device ms per call: events around 5 back-to-back calls, median "
+                              "of 5; blocks_* the block kernels alone (all ranks' blocks), "
+                              "ring_* with the merge and the f32 sums")
+            line["card"] = smi
+        line["ok"] = ok
+        emit(line)
+        lines.append(line)
+        require(ok, f"ring_check {name}: the ring disagrees with the plain ring or the full call")
+        del q, k, v, do, qs, ks, vs, dos, os_, lses, grads, ring, full
+        if not on_cpu:
+            torch.cuda.empty_cache()
+    return lines
+
+
+def bubble_share(stages, microbatches):
+    """GPipe's idle share of a stage: (P - 1) / (M + P - 1) of the ticks."""
+    return (stages - 1) / (microbatches + stages - 1)
+
+
+def pipe_ctx_expected_launches(mesh, n_layer, global_batch):
+    """Each rank's launches of each kernel per step, by world rank: its
+    stage's layers (all of them off a pipeline), once per microbatch of its
+    batch shard (M / batch shards on a pipeline, else 1), times the blocks
+    its context rank r attends (r + 1: the past slices and the diagonal)."""
+    from ray_tpu_torch.parallel import AXIS_ORDER
+    from ray_tpu_torch.parallel.pipeline import default_microbatches
+
+    shape = [mesh.get(a, 1) for a in AXIS_ORDER]
+    pp, shards = mesh.get("pipeline", 1), mesh.get("data", 1) * mesh.get("fsdp", 1)
+    per_shard = default_microbatches(global_batch, pp) // shards if pp > 1 else 1
+    context = [int(c) for c in np.unravel_index(np.arange(int(np.prod(shape))), shape)[
+        AXIS_ORDER.index("context")]]
+    return [n_layer // pp * per_shard * (c + 1) for c in context]
+
+
+def phase_pipe_ctx_gang(smi, main_loss, main_gnorm):
+    """GPT-2 small at full width and depth through ``TorchTrainer`` on
+    ``{"pipeline": 2}`` and on ``{"context": 2}``: two workers holding 0.5
+    GPU each on the one card, over gloo, global B 16 x S 1024, the main
+    path's weights and batch, 1 warmup and ``PIPE_CTX_TIMED`` timed steps.
+    Returns rank 0's launches on each."""
+    from ray_tpu_torch.air import ScalingConfig
+
+    out_launches = {}
+    for name, mesh in (("pipeline_gang", {"pipeline": 2}), ("context_gang", {"context": 2})):
+        scaling = ScalingConfig(num_workers=2, use_gpu=True, gpus_per_worker=0.5, mesh=mesh)
+        config = {"model": "gpt2_small", "global_batch": B, "seq": S, "warmup": 1,
+                  "timed": PIPE_CTX_TIMED}
+        out = run_mesh_gang(scaling, "gloo", config, f"chip_smoke_{name}")
+        ranks = out["ranks"]
+        r0 = ranks[0]
+        expected = pipe_ctx_expected_launches(mesh, 12, B)
+        line = {"phase": "pipe_ctx_gang", "name": name, "entry": "TorchTrainer.fit",
+                "mesh": mesh, "backend": "gloo", "num_workers": 2, "gpus_per_worker": 0.5,
+                "global_batch": B, "seq": S, "mesh_shape": r0["mesh_shape"],
+                "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+                "main_path_first_loss": main_loss, "main_path_first_grad_norm": main_gnorm,
+                "first_loss_abs_err_vs_main_path": abs(r0["losses"][0] - main_loss),
+                "first_grad_norm_rel_err_vs_main_path": abs(r0["grad_norms"][0] - main_gnorm)
+                / main_gnorm,
+                "tol": {"loss_abs": LOSS_TOL, "grad_norm_rel": GRAD_NORM_RTOL},
+                "expected_launches_per_rank_per_step": expected,
+                "per_rank": [{k: r[k] for k in (
+                    "rank", "pid", "device", "step_ms_timed", "step_ms_median", "items_per_s",
+                    "launches_per_step", "collective_ms_per_step", "p2p_overlap_per_step",
+                    "peak_memory_gib", "state_peak_gib", "init_s")} for r in ranks],
+                "fit_s": out["fit_s"], "leftover_session_dirs": out["leftover_session_dirs"],
+                "leftover_worker_pids": out["leftover_worker_pids"], "card": smi}
+        if "pipeline" in mesh:
+            m = line["microbatches"] = expected[0] // (12 // mesh["pipeline"])
+            line["bubble_share"] = bubble_share(mesh["pipeline"], m)
+        emit(line)
+        require(all(r["losses"] == r0["losses"] for r in ranks), f"{name}: ranks disagree")
+        require(line["first_loss_abs_err_vs_main_path"] <= LOSS_TOL,
+                f"{name}: first loss {r0['losses'][0]} vs the main path's {main_loss}")
+        require(line["first_grad_norm_rel_err_vs_main_path"] <= GRAD_NORM_RTOL,
+                f"{name}: first grad norm {r0['grad_norms'][0]} vs the main path's {main_gnorm}")
+        for r, n in zip(ranks, expected):
+            check_launches(f"{name} rank {r['rank']}", r, n)
+            require(all(math.isfinite(x) for x in r["losses"]), f"{name}: losses {r['losses']}")
+        require(not out["leftover_session_dirs"] and not out["leftover_worker_pids"],
+                f"{name}: left after shutdown: {out['leftover_session_dirs']}, "
+                f"{out['leftover_worker_pids']}")
+        out_launches[name] = r0["launches"]
+    return out_launches
+
+
+def run_pipe_ctx_phases(smi):
+    """``ring_check`` and ``pipe_ctx_gang`` alone, against the main path's
+    first step taken here (``tools/port_chip_phases.py pipe_ctx``)."""
+    import torch
+
+    from ray_tpu_torch.ops import _build
+
+    _build.build()
+    cfg, opt, state, batch = build_workload()
+    state, _, run = run_steps(cfg, opt, state, batch, warmup=0, timed=1)
+    del state, batch
+    torch.cuda.empty_cache()
+    phase_ring_check(smi)
+    return phase_pipe_ctx_gang(smi, run["losses"][0], run["grad_norms"][0])
+
+
+def check_launches(path, run, per_step):
+    """Each step of ``run`` launched each kernel ``per_step`` times."""
+    for i, counts in enumerate(run["launches_per_step"]):
+        require(len(counts) == 2 and all(n == per_step for n in counts.values()),
+                f"{path} step {i}: kernel launches {counts}, expected {per_step} each")
 
 
 # ---------------------------------------------------------------------------- RLlib
@@ -1652,6 +1937,10 @@ def main():
     phase_collective_nccl(smi)
     mesh_launches = phase_mesh_gang(smi, losses[0], gnorms[0])
 
+    # ------------------------------------------------------------------ 6c. pipeline, context
+    ring = phase_ring_check(smi)[0]  # the Llama shape's
+    gang_launches = phase_pipe_ctx_gang(smi, losses[0], gnorms[0])
+
     # ------------------------------------------------------------------ 7. the Llama shape
     # Both bf16 kernels at Llama 3 8B's attention: bh 32 (B 1, 32 heads after
     # the kv heads are repeated), S 8192, d 128, causal.
@@ -1676,6 +1965,7 @@ def main():
     # ------------------------------------------------------------------ 10. result
     launches_per_path = {name: {"main_path": launches[name], "trainer": t_launches[name],
                                 "mesh_gang": mesh_launches[name],
+                                **{path: n[name] for path, n in gang_launches.items()},
                                 **{path: n[name] for path, n in zoo_launches.items()}}
                          for name in launches}
 
@@ -1686,6 +1976,11 @@ def main():
                 "bound_ms": t[f"flash_{which}_bound_ms"], "bound_by": t[f"flash_{which}_bound_by"],
                 "library_ms": t[f"sdpa_{which}_ms"], "max_abs_err": err}
 
+    def as_ring_blocks(which):
+        return {"ring": ring["ring"], "blocks": ring["blocks"], "ms": ring["ms"][f"blocks_{which}"],
+                "full_call_ms": ring["ms"][f"full_call_{which}"],
+                "ring_ms": ring["ms"][f"ring_{which}"]}
+
     kernels = {"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "ray_tpu/ops/flash_attention.py:59", "launches": launches["flash_fwd"],
@@ -1694,7 +1989,8 @@ def main():
          "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1], "library_ms": lib_fwd_ms,
          "ms_over_library_ms": fwd_ms / lib_fwd_ms, "ms_one_call": one_call["flash_fwd_ms"],
          "library_ms_one_call": one_call["sdpa_fwd_ms"],
-         "llama_shape": at_llama_shape("fwd", llama_err[0])},
+         "llama_shape": at_llama_shape("fwd", llama_err[0]),
+         "ring_blocks_llama_shape": as_ring_blocks("fwd")},
         {"name": "flash_bwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "ray_tpu/ops/flash_attention.py:160", "launches": launches["flash_bwd"],
          "launches_per_path": launches_per_path["flash_bwd"],
@@ -1702,9 +1998,11 @@ def main():
          "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1], "library_ms": lib_bwd_ms,
          "ms_over_library_ms": bwd_ms / lib_bwd_ms, "ms_one_call": one_call["flash_bwd_ms"],
          "library_ms_one_call": one_call["sdpa_bwd_ms"],
-         "llama_shape": at_llama_shape("bwd", llama_err[1])},
+         "llama_shape": at_llama_shape("bwd", llama_err[1]),
+         "ring_blocks_llama_shape": as_ring_blocks("bwd")},
     ]}
-    problems = check_kernels_line(kernels, ["main_path", "trainer", "mesh_gang", *zoo_launches])
+    problems = check_kernels_line(kernels, ["main_path", "trainer", "mesh_gang", *gang_launches,
+                                            *zoo_launches])
     require(not problems, f"kernels line: {problems}")
     emit(kernels)
     print(smi, flush=True)

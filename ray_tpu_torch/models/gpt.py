@@ -285,7 +285,7 @@ def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=
                 )
             h, aux = moe.moe_mlp(h, m["router_w"], m["fc_w"], m["fc_b"], m["proj_w"],
                                  m["proj_b"], capacity_factor=config.moe_capacity_factor,
-                                 batch_mean=None if spmd is None else spmd.batch_mean)
+                                 batch_mean=_moe_batch_mean(spmd))
         else:
             fc_w = _weight(layer, "fc_w", cdt, spmd)  # (D, F_local)
             sharded = fc_w.shape[-1] < config.ff_dim
@@ -307,43 +307,113 @@ def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=
     return out_mlp_part(x, o, layer)
 
 
-def _forward_local(params, tokens, config: GPTConfig, attention_fn, dropout_seed, mesh, spmd):
-    """Logits (B, S, V) f32 and the MoE aux loss from params and tokens on
-    one device, or from this rank's shards on a mesh (logits then (B_local,
-    S, V_local))."""
+def _moe_batch_mean(spmd):
+    """The mean of the router's fractions over the rows a microbatch spans:
+    the batch shards' (all-reduced) off a pipeline; on a pipeline a
+    microbatch lies on one batch shard (``parallel/pipeline.py``)."""
+    if spmd is None or spmd.pp > 1:
+        return None
+    return spmd.batch_mean
+
+
+def lm_head_loss(x, head, targets, vocab: int, spmd, num_microbatches=None):
+    """The mean cross entropy of the logits ``x @ head.T`` (f32) against
+    ``targets``, over the global batch on a mesh. On a pipeline, ``x`` is the
+    last stage's output (the others pass their 0-dim zero): the last stage
+    takes the head and loss microbatch by microbatch, each under activation
+    checkpointing (a row of Llama 3 8B's f32 logits is 4.2 GB), and the loss
+    is summed over the pipeline group, so every stage holds it and each
+    stage's backward runs."""
+
+    def ce(xc, tc):
+        if spmd is not None:
+            xc = spmd.copy_to_tp(xc, head.shape[0] < vocab)
+        logits = _lm_head(xc, head)
+        return causal_lm_loss(logits, tc) if spmd is None else spmd.token_ce(logits, tc, vocab)
+
+    if spmd is None:
+        return ce(x, targets)
+    if spmd.pp == 1:
+        return spmd.batch_mean(ce(x, targets))
+    if not spmd.last_stage:
+        return spmd.stage_sum(x)
+    from torch.utils.checkpoint import checkpoint
+
+    from ray_tpu_torch.parallel.pipeline import microbatches
+
+    m = microbatches(spmd, x.shape[0], num_microbatches)[1]
+    parts = [checkpoint(ce, xc, tc, use_reentrant=False)
+             for xc, tc in zip(x.chunk(m), targets.chunk(m))]
+    return spmd.stage_sum(spmd.batch_mean(torch.stack(parts).mean()))
+
+
+def stage_output(x, shape, dtype, spmd):
+    """The last stage's output (``shape``, ``dtype``) on every stage of a
+    pipeline (the evaluation path: each stage then takes the head itself)."""
+    if spmd is None or spmd.pp == 1:
+        return x
+    if not spmd.last_stage:  # zeros, through which the stage's backward is reached
+        x = torch.zeros(shape, dtype=dtype, device=x.device) + x.to(dtype)
+    return spmd.stage_sum(x)
+
+
+def _hidden(params, tokens, config: GPTConfig, attention_fn, dropout_seed, spmd,
+            num_microbatches):
+    """The final layer-normed activations (B, S, D) in ``config.dtype`` and
+    the MoE aux loss, from params and tokens on one device, or from this
+    rank's shards on a mesh (the last stage's, and a 0-dim zero on the other
+    stages of a pipeline; the tokens this rank's slice of each sequence
+    under context parallelism). Returns (x, aux, the tied head weight in
+    ``config.dtype``, whole over fsdp on the first and last stages)."""
     B, S = tokens.shape
     cdt = config.dtype
     wte = params["wte"].to(cdt)
     if spmd is None:
         x = F.embedding(tokens, wte) + params["wpe"].to(cdt)[:S][None]
     else:
-        wte = spmd.gather(wte, "wte")
-        wpe = spmd.gather(params["wpe"].to(cdt), "wpe")
-        x = spmd.embed(tokens, wte, config.vocab_size) + wpe[:S][None]
+        if config.moe_experts and spmd.cp > 1:
+            raise NotImplementedError(
+                "MoE over a context axis (routing a sequence split across ranks) is not "
+                "ported yet: ROADMAP.md Queue 1 item 3 (MoE's expert axis)"
+            )
         dropout_seed = fold_batch_index(dropout_seed, spmd)
+        if spmd.first_stage or spmd.last_stage:
+            wte = spmd.gather(wte, "wte")
+        if spmd.first_stage:
+            # Positions at this context slice's global offset.
+            off = spmd.seq_offset(S)
+            wpe = spmd.gather(params["wpe"].to(cdt), "wpe")
+            x = spmd.embed(tokens, wte, config.vocab_size) + wpe[off:off + S][None]
+        else:  # the stage's input comes from the previous stage
+            x = torch.empty((B, S, config.d_model), dtype=cdt, device=tokens.device)
     use_dropout = dropout_seed is not None and config.dropout > 0
     layers_seed = None
     if use_dropout:
-        x = _dropout(x, config.dropout, fold_seed(dropout_seed, 0))
+        if spmd is None or spmd.first_stage:
+            x = _dropout(x, config.dropout, fold_seed(dropout_seed, 0))
         layers_seed = fold_seed(dropout_seed, 1)
 
     save_attn = config.remat and config.remat_policy == "save_attn"
 
-    def block_fn(x, layer, idx):
-        seed = fold_seed(layers_seed, idx) if use_dropout else None
-        return _block(x, layer, config, attention_fn, seed, sub_remat=save_attn, spmd=spmd)
+    def make_block_fn(attn, mb_idx, streams):
+        def block_fn(x, layer, idx):
+            seed = None
+            if use_dropout:
+                seed = fold_seed(layers_seed, idx)
+                if mb_idx is not None:  # a mask of its own per microbatch
+                    seed = fold_seed(seed, mb_idx)
+            return _block(x, layer, config, attn, seed, sub_remat=save_attn, spmd=spmd)
 
-    x, moe_aux = apply_stack(
-        params["blocks"],
-        x,
-        remat(block_fn, config.remat_policy) if config.remat and not save_attn else block_fn,
-        n_layer=config.n_layer,
-        mesh=mesh,
-    )
-    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(cdt)
-    if spmd is not None:
-        x = spmd.copy_to_tp(x, wte.shape[0] < config.vocab_size)
-    return _lm_head(x, wte), moe_aux
+        if config.remat and not save_attn:
+            return remat(block_fn, config.remat_policy)
+        return block_fn
+
+    x, moe_aux = apply_stack(params["blocks"], x, make_block_fn, n_layer=config.n_layer,
+                             attention_fn=attention_fn, spmd=spmd,
+                             num_microbatches=num_microbatches)
+    if spmd is None or spmd.last_stage:
+        x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(cdt)
+    return x, moe_aux, wte
 
 
 def forward(
@@ -354,19 +424,29 @@ def forward(
     dropout_seed: Optional[int] = None,
     mesh=None,
     return_aux: bool = False,
+    num_microbatches: Optional[int] = None,
 ):
     """Returns logits (B, S, vocab) in float32 (with ``return_aux``, a
     (logits, moe_aux_loss) pair). Pass ``dropout_seed`` to enable dropout
     (training); omit it for deterministic eval. On a ``mesh`` (a
     ``DeviceMesh``), params and tokens are DTensors (``create_train_state``,
-    ``shard_batch``) and the logits a DTensor: batch over (data, fsdp), vocab
-    over tensor."""
+    ``shard_batch``) and the logits a DTensor: batch over (data, fsdp), the
+    sequence over context, vocab over tensor. With ``pipeline > 1`` the
+    stack runs as a GPipe of ``num_microbatches`` (default 2P if it divides
+    the batch, else P), and every stage takes the head of the last stage's
+    output."""
     spmd = spmd_for(mesh)
     if spmd is not None:
         params, tokens = spmd.local(params), spmd.batch_local(tokens)
-    logits, moe_aux = _forward_local(params, tokens, config, attention_fn, dropout_seed, mesh,
-                                     spmd)
-    if spmd is not None:
+    x, moe_aux, wte = _hidden(params, tokens, config, attention_fn, dropout_seed, spmd,
+                              num_microbatches)
+    if spmd is None:
+        logits = _lm_head(x, wte)
+    else:
+        if not (spmd.first_stage or spmd.last_stage):  # _hidden gathered it on those
+            wte = spmd.gather(wte, "wte")
+        x = stage_output(x, (*tokens.shape, config.d_model), config.dtype, spmd)
+        logits = _lm_head(spmd.copy_to_tp(x, wte.shape[0] < config.vocab_size), wte)
         logits = spmd.global_batch(logits, config.vocab_size)
     return (logits, moe_aux) if return_aux else logits
 
@@ -378,6 +458,7 @@ def loss_fn(
     attention_fn: Optional[Callable] = None,
     dropout_seed: Optional[int] = None,
     mesh=None,
+    num_microbatches: Optional[int] = None,
 ):
     """Causal LM cross entropy (mean over tokens; on a mesh, over the global
     batch, the same on every rank)."""
@@ -390,12 +471,9 @@ def loss_fn(
     else:
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits, moe_aux = _forward_local(params, inputs, config, attention_fn, dropout_seed, mesh,
-                                     spmd)
-    if spmd is None:
-        loss = causal_lm_loss(logits, targets)
-    else:
-        loss = spmd.lm_loss(logits, targets, config.vocab_size)
+    x, moe_aux, wte = _hidden(params, inputs, config, attention_fn, dropout_seed, spmd,
+                              num_microbatches)
+    loss = lm_head_loss(x, wte, targets, config.vocab_size, spmd, num_microbatches)
     if config.moe_experts:
         loss = loss + config.moe_aux_weight * moe_aux
     return loss

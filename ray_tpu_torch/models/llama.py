@@ -19,9 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch._private.accelerators.gpu import resolve_device
-from ray_tpu_torch.models.gpt import _lm_head, _out_product, _weight
+from ray_tpu_torch.models.gpt import _lm_head, _out_product, _weight, lm_head_loss, stage_output
 from ray_tpu_torch.models.stack import apply_stack, remat, resolve_attention
-from ray_tpu_torch.ops.basic import causal_lm_loss
 from ray_tpu_torch.parallel.spmd import spmd_for
 
 
@@ -172,12 +171,15 @@ def _rms_norm(x, scale, eps):
     return xf * rms * scale
 
 
-def rope_tables(seq_len: int, head_dim: int, theta: float, device=None):
-    """(S, head_dim/2) f32 cos and sin tables of positions 0..S-1, built once
-    per forward and shared by every layer."""
+def rope_tables(seq_len: int, head_dim: int, theta: float, device=None, offset: int = 0):
+    """(S, head_dim/2) f32 cos and sin tables of positions offset ..
+    offset+S-1, built once per forward and shared by every layer: the
+    sequence streams of the stack, at this context slice's global
+    positions."""
     half = head_dim // 2
     freqs = torch.pow(theta, -torch.arange(0, half, dtype=torch.float32, device=device) / half)
-    angles = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+    pos = torch.arange(offset, offset + seq_len, dtype=torch.float32, device=device)
+    angles = pos[:, None] * freqs[None, :]
     return torch.cos(angles), torch.sin(angles)
 
 
@@ -251,35 +253,44 @@ def _block(x, layer, config: LlamaConfig, attention_fn, cos, sin, sub_remat=Fals
     return out_mlp_part(x, o, layer)
 
 
-def _forward_local(params, tokens, config: LlamaConfig, attention_fn, mesh, spmd):
-    """Logits (B, S, V) f32 on one device, or this rank's (B_local, S,
-    V_local) on a mesh."""
+def _hidden(params, tokens, config: LlamaConfig, attention_fn, spmd, num_microbatches):
+    """The final RMS-normed activations (B, S, D) in ``config.dtype`` on one
+    device, or this rank's on a mesh (the last stage's, a 0-dim zero on the
+    other stages of a pipeline)."""
     cdt = config.dtype
-    S = tokens.shape[1]
+    B, S = tokens.shape
     if spmd is None:
         x = F.embedding(tokens, params["embed"].to(cdt))
-    else:
+    elif spmd.first_stage:
         table = spmd.gather(params["embed"].to(cdt), "embed")
         x = spmd.embed(tokens, table, config.vocab_size)
-    cos, sin = rope_tables(S, config.head_dim, config.rope_theta, x.device)
+    else:  # the stage's input comes from the previous stage
+        x = torch.empty((B, S, config.d_model), dtype=cdt, device=tokens.device)
+    offset = 0 if spmd is None else spmd.seq_offset(S)
+    streams = rope_tables(S, config.head_dim, config.rope_theta, x.device, offset)
     save_attn = config.remat and config.remat_policy == "save_attn"
 
-    def block_fn(x, layer, idx):
-        return _block(x, layer, config, attention_fn, cos, sin, sub_remat=save_attn, spmd=spmd)
+    def make_block_fn(attn, mb_idx, streams):
+        cos, sin = streams  # this rank's positions
 
-    x, _ = apply_stack(
-        params["blocks"],
-        x,
-        remat(block_fn, config.remat_policy) if config.remat and not save_attn else block_fn,
-        n_layer=config.n_layer,
-        mesh=mesh,
-    )
-    x = _rms_norm(x, params["final_norm"], config.norm_eps).to(cdt)
-    head = params["lm_head"].to(cdt)
-    if spmd is not None:
-        head = spmd.gather(head, "lm_head")
-        x = spmd.copy_to_tp(x, head.shape[0] < config.vocab_size)
-    return _lm_head(x, head)
+        def block_fn(x, layer, idx):
+            return _block(x, layer, config, attn, cos, sin, sub_remat=save_attn, spmd=spmd)
+
+        if config.remat and not save_attn:
+            return remat(block_fn, config.remat_policy)
+        return block_fn
+
+    x, _ = apply_stack(params["blocks"], x, make_block_fn, n_layer=config.n_layer,
+                       attention_fn=attention_fn, spmd=spmd,
+                       num_microbatches=num_microbatches, seq_streams=streams)
+    if spmd is None or spmd.last_stage:
+        x = _rms_norm(x, params["final_norm"], config.norm_eps).to(cdt)
+    return x
+
+
+def _head(params, config: LlamaConfig, spmd):
+    head = params["lm_head"].to(config.dtype)
+    return head if spmd is None else spmd.gather(head, "lm_head")
 
 
 def forward(
@@ -289,15 +300,20 @@ def forward(
     attention_fn: Optional[Callable] = None,
     dropout_seed: Optional[int] = None,  # accepted for API parity; Llama uses no dropout
     mesh=None,
+    num_microbatches: Optional[int] = None,
 ):
     """Logits (B, S, vocab) in float32; on a ``mesh``, from DTensor params
     and tokens, a DTensor as ``gpt.forward`` returns."""
     del dropout_seed
     spmd = spmd_for(mesh)
     if spmd is None:
-        return _forward_local(params, tokens, config, attention_fn, mesh, None)
-    logits = _forward_local(spmd.local(params), spmd.batch_local(tokens), config, attention_fn,
-                            mesh, spmd)
+        return _lm_head(_hidden(params, tokens, config, attention_fn, None, num_microbatches),
+                        _head(params, config, None))
+    params, tokens = spmd.local(params), spmd.batch_local(tokens)
+    x = _hidden(params, tokens, config, attention_fn, spmd, num_microbatches)
+    x = stage_output(x, (*tokens.shape, config.d_model), config.dtype, spmd)
+    head = _head(params, config, spmd)
+    logits = _lm_head(spmd.copy_to_tp(x, head.shape[0] < config.vocab_size), head)
     return spmd.global_batch(logits, config.vocab_size)
 
 
@@ -308,6 +324,7 @@ def loss_fn(
     attention_fn: Optional[Callable] = None,
     dropout_seed: Optional[int] = None,
     mesh=None,
+    num_microbatches: Optional[int] = None,
 ):
     """Causal LM cross entropy (mean over tokens; on a mesh, over the global
     batch, the same on every rank)."""
@@ -320,7 +337,6 @@ def loss_fn(
     else:
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits = _forward_local(params, inputs, config, attention_fn, mesh, spmd)
-    if spmd is None:
-        return causal_lm_loss(logits, targets)
-    return spmd.lm_loss(logits, targets, config.vocab_size)
+    x = _hidden(params, inputs, config, attention_fn, spmd, num_microbatches)
+    head = _head(params, config, spmd) if spmd is None or spmd.last_stage else None
+    return lm_head_loss(x, head, targets, config.vocab_size, spmd, num_microbatches)

@@ -274,6 +274,11 @@ def _forward_local(params, images, config: ResNetConfig, spmd):
                 "ResNet with channels split over the tensor axis is not ported yet: "
                 "ROADMAP.md Queue 1 item 3"
             )
+        if spmd.pp > 1 or spmd.cp > 1:
+            raise NotImplementedError(
+                "ResNet has no layer stack to pipeline and no sequence to split: it runs "
+                "on data, fsdp (and, later, tensor) meshes: ROADMAP.md Queue 1 item 3"
+            )
         params, images = spmd.local(params), spmd.batch_local(images)
         params = {**params, "head": {**params["head"],
                                      "w": spmd.gather(params["head"]["w"], "head.w")}}

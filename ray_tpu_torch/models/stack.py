@@ -1,12 +1,17 @@
 """Transformer-stack scaffolding: the counterpart of ``ray_tpu/models/stack.py``.
 
-A model supplies ``block_fn(x, layer_params, idx) -> (x, aux)``; this module
-runs it over the stacked per-layer params as a Python loop (the counterpart of
-``lax.scan``) and sums the blocks' ``aux`` (MoE's load-balancing loss; None
-from a block that has none) as the JAX stack does. ``remat`` wraps a block in
-activation checkpointing under one of the JAX package's remat policies. On a
-mesh the blocks run on this rank's shards (``parallel/spmd.py``); a mesh with
-pipeline, context or expert parallelism raises (ROADMAP.md Queue 1 item 3).
+A model supplies ``make_block_fn(attention_fn, mb_idx, seq_streams)``, which
+returns ``block_fn(x, layer_params, idx) -> (x, aux)`` (``idx`` the global
+layer index; remat already applied); this module runs it over the stacked
+per-layer params as a Python loop (the counterpart of ``lax.scan``) and sums
+the blocks' ``aux`` (MoE's load-balancing loss; None from a block that has
+none) as the JAX stack does. ``remat`` wraps a block in activation
+checkpointing under one of the JAX package's remat policies. On a mesh the
+blocks run on this rank's shards (``parallel/spmd.py``): with ``pipeline >
+1`` as a GPipe over microbatches (``parallel/pipeline.py``), and with
+``context > 1`` with the ring (``parallel/ring_attention.py``) as their
+attention unless the caller passes its own, which is what XLA's partitioner
+gives the JAX package's stack on a context-sharded sequence.
 """
 
 from __future__ import annotations
@@ -22,7 +27,6 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch.ops.flash_attention import flash_attention, xla_attention
-from ray_tpu_torch.parallel.mesh import check_mesh
 
 
 def unstack_layers(blocks: Dict[str, Any], n_layer: int) -> list:
@@ -47,20 +51,48 @@ def unstack_layers(blocks: Dict[str, Any], n_layer: int) -> list:
 
 
 def apply_stack(
-    blocks: Dict[str, Any],  # stacked per-layer params, leading dim n_layer
+    blocks: Dict[str, Any],  # stacked per-layer params, leading dim n_layer (L/P on a stage)
     x,  # (B, S, D)
-    block_fn: Callable,  # (x, layer_params, idx) -> (x, aux), remat already applied
+    make_block_fn: Callable,  # (attention_fn, mb_idx, seq_streams) -> block_fn
     *,
     n_layer: int,
-    mesh=None,
+    attention_fn: Optional[Callable] = None,
+    spmd=None,
+    num_microbatches: Optional[int] = None,
+    seq_streams: tuple = (),
 ):
-    """Run ``block_fn`` over the layers in order; returns ``(x, aux_sum)``,
-    ``aux_sum`` an f32 scalar. On a mesh, ``blocks`` and ``x`` are this rank's
-    shards."""
-    check_mesh(mesh)
+    """Run the blocks over the layers in order; returns ``(x, aux_sum)``,
+    ``aux_sum`` an f32 scalar. On a mesh (``spmd``), ``blocks`` and ``x`` are
+    this rank's shards; with a pipeline, ``x`` and the result are those of
+    ``pipeline_apply`` (the stage's input, and the last stage's output or a
+    0-dim zero), and ``aux_sum`` is already averaged over the microbatches.
+    ``seq_streams`` are per-position tensors (leading dim S, RoPE's tables)
+    handed to every block, already sliced to this rank's positions."""
+    attn = attention_fn
+    if attn is None and spmd is not None and spmd.cp > 1:
+        from ray_tpu_torch.parallel.ring_attention import ring_attention
+
+        attn = functools.partial(ring_attention, group=spmd.cp_group)
+    if spmd is not None and spmd.pp > 1:
+        from ray_tpu_torch.parallel.pipeline import pipeline_apply
+
+        n_local = n_layer // spmd.pp
+        if n_local * spmd.pp != n_layer:
+            raise ValueError(f"n_layer={n_layer} not divisible by pipeline={spmd.pp}")
+        first = spmd.pp_rank * n_local
+
+        def stack_fn(stage, xm, mb_idx, streams):
+            block_fn = make_block_fn(attn, mb_idx, streams)
+            return _run_layers(stage, xm, block_fn, n_local, first)
+
+        return pipeline_apply(spmd, blocks, x, stack_fn, num_microbatches, seq_streams)
+    return _run_layers(blocks, x, make_block_fn(attn, None, seq_streams), n_layer, 0)
+
+
+def _run_layers(blocks, x, block_fn, n_layer: int, first: int):
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    for idx, layer in enumerate(unstack_layers(blocks, n_layer)):
-        x, aux = block_fn(x, layer, idx)
+    for i, layer in enumerate(unstack_layers(blocks, n_layer)):
+        x, aux = block_fn(x, layer, first + i)
         if aux is not None:
             aux_sum = aux_sum + aux
     return x, aux_sum

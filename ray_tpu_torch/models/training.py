@@ -10,10 +10,13 @@ update.
 
 On a mesh (a ``DeviceMesh`` from ``MeshSpec.build``), params and Adam moments
 are DTensors placed by ``ShardingRules`` (``param_shardings``), initialized
-leaf by leaf so a model never exists whole on a rank; the batch is a DTensor
-over (data, fsdp) (``shard_batch``); the step runs the model on local shards
+leaf by leaf so a model never exists whole on a rank (a pipeline stage holds
+its L/P layers); the batch is a DTensor over (data, fsdp), its sequence over
+context (``shard_batch``); the step runs the model on local shards
 (``parallel/spmd.py``), reduces each gradient to its param's placements, and
 updates each rank's shards, with the clipping norm taken over every shard.
+A param a pipeline stage does not use (the embedding past stage 0, the head
+before the last) gets a zero gradient there, ``Partial`` over ``pipeline``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from ray_tpu_torch.parallel.mesh import (
     check_mesh,
     distribute,
 )
+from ray_tpu_torch.parallel.spmd import spmd_for
 
 _DROPOUT_BASE_SEED = 0x5EED
 
@@ -259,6 +263,18 @@ def create_train_state(config, seed, optimizer: AdamW, mesh=None, device=None,
     return TrainState(params=params, opt_state=optimizer.init(params), step=0)
 
 
+def _zero_if_unused(g, param, spmd):
+    """A zero gradient, placed as the used ones are, for a param this rank's
+    stage did not use."""
+    if g is not None:
+        return g
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(torch.zeros_like(param.to_local()), param.device_mesh,
+                              spmd.grad_placements(param), run_check=False,
+                              shape=param.shape, stride=param.stride())
+
+
 def _reduce_grad(g, param):
     """A gradient with its param's placements: the sum of its ``Partial``
     parts over the batch axes (the data-parallel all-reduce)."""
@@ -289,9 +305,10 @@ def make_train_step(
         )
         leaves = tree_leaves(state.params)
         loss = model.loss_fn(state.params, batch, config, attention_fn, dropout_seed, mesh=mesh)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=mesh is not None)
         if mesh is not None:
-            grads = [_reduce_grad(g, p) for g, p in zip(grads, leaves)]
+            spmd = spmd_for(mesh)
+            grads = [_reduce_grad(_zero_if_unused(g, p, spmd), p) for g, p in zip(grads, leaves)]
         gnorm = optimizer.update_(state.params, list(grads), state.opt_state)
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": gnorm, "step": state.step}
@@ -304,16 +321,26 @@ def shard_batch(batch: Dict[str, Any], mesh=None, device=None) -> Dict[str, torc
     raises when there is none). With a ``mesh``, every rank passes the whole
     batch and keeps its shard, as a DTensor: a 2-D token batch by
     ``batch_spec`` (batch over (data, fsdp), sequence over context), any
-    other by its batch dim alone."""
+    other by its batch dim alone. Over a context axis a ``tokens`` batch (B,
+    S+1) is split into ``inputs`` and ``targets`` (B, S) first, so the
+    sequence divides."""
     if mesh is None:
         device = resolve_device(device)
         return {k: torch.as_tensor(np.asarray(x), device=device) for k, x in batch.items()}
     check_mesh(mesh)
-    n = axis_sizes(mesh)["data"] * axis_sizes(mesh)["fsdp"]
+    sizes = axis_sizes(mesh)
+    n = sizes["data"] * sizes["fsdp"]
+    if sizes["context"] > 1 and "tokens" in batch:
+        tokens = np.asarray(batch["tokens"])
+        batch = {**{k: v for k, v in batch.items() if k != "tokens"},
+                 "inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
     out = {}
     for k, x in batch.items():
         x = torch.as_tensor(np.asarray(x), device=mesh_device(mesh))
         if x.shape[0] % n:
             raise ValueError(f"batch '{k}' of {x.shape[0]} rows does not split over {n} shards")
+        if x.dim() == 2 and x.shape[1] % sizes["context"]:
+            raise ValueError(f"batch '{k}' of {x.shape[1]} positions does not split over "
+                             f"{sizes['context']} context ranks")
         out[k] = distribute(x, mesh, batch_sharding(mesh, x.dim()))
     return out

@@ -89,20 +89,20 @@ class MeshSpec:
 
 
 # Mesh axes the port runs; the others raise.
-PORTED_AXES = ("data", "fsdp", "tensor")
+PORTED_AXES = ("data", "fsdp", "tensor", "pipeline", "context")
 
 
 def check_mesh(mesh) -> None:
     """A mesh (a ``DeviceMesh``, ``MeshSpec`` or dict of axis sizes) the port
-    can run: data, fsdp and tensor parallelism. Pipeline, context or expert
-    parallelism (an axis > 1) raises."""
+    can run: data, fsdp, tensor, pipeline and context parallelism. Expert
+    parallelism (an ``expert`` axis > 1) raises."""
     if mesh is None:
         return
     beyond = {a: n for a, n in axis_sizes(mesh).items() if a not in PORTED_AXES and n > 1}
     if beyond:
         raise NotImplementedError(
-            f"mesh axes {beyond}: pipeline, context and expert parallelism are not ported "
-            "yet: ROADMAP.md Queue 1 item 3"
+            f"mesh axes {beyond}: expert parallelism is not ported yet: "
+            "ROADMAP.md Queue 1 item 3"
         )
 
 

@@ -1,7 +1,8 @@
 """The host-side helpers of chip_smoke.py, on the CPU: the ptxas report its
 build phase prints, the relative error its kernel checks use, the trainer
-phase's check that its own workers are gone after shutdown, and the RL
-phases' numpy CartPole, runner setup and learner check."""
+phase's check that its own workers are gone after shutdown, the RL
+phases' numpy CartPole, runner setup and learner check, and the pipeline
+and context phases' ring check, launch counts and gangs."""
 
 import os
 import sys
@@ -253,4 +254,76 @@ def test_mesh_gang_loop_runs_on_the_cpu():
     assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 2
     assert r0["tokens_per_gpu_per_step"] == 2 * 32
     assert r0["collective_ms_per_step"]["host_ms"] > 0
+    assert not out["leftover_session_dirs"] and not out["leftover_worker_pids"]
+
+
+# ------------------------------------------------------------------ pipeline and context
+def test_ring_check_runs_on_the_cpu():
+    # The ring's block loop and merge over virtual slices against the plain
+    # ring and one full call, at the cases' shapes cut by 16 (the kernels'
+    # plain versions; no times without a card).
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        lines = chip_smoke.phase_ring_check("cpu", device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert [line["case"] for line in lines] == ["llama3_8b", "gpt2_small", "f32"]
+    assert [line["blocks"] for line in lines] == [10, 3, 10]
+    assert all(line["ok"] and "ms" not in line for line in lines)
+
+
+@pytest.mark.parametrize("mesh,n_layer,batch,expected", [
+    ({"pipeline": 2}, 12, 16, [24, 24]),  # 6 layers x M 4
+    ({"context": 2}, 12, 16, [12, 24]),  # rank r: r + 1 blocks a layer
+    ({"data": 2, "context": 2}, 12, 64, [12, 24, 12, 24]),  # context is inside data
+    ({"pipeline": 2, "data": 2}, 12, 64, [12] * 4),  # M 4 over 2 data ranks
+    ({"pipeline": 4}, 32, 4, [32] * 4),  # 8 layers x M 4 (2P does not divide 4)
+    ({"context": 4}, 4, 1, [4, 8, 12, 16]),
+    ({"data": 4}, 12, 64, [12] * 4),
+])
+def test_pipe_ctx_expected_launches(mesh, n_layer, batch, expected):
+    assert chip_smoke.pipe_ctx_expected_launches(mesh, n_layer, batch) == expected
+
+
+def test_bubble_share():
+    assert chip_smoke.bubble_share(2, 4) == pytest.approx(0.2)
+    assert chip_smoke.bubble_share(4, 4) == pytest.approx(3 / 7)
+
+
+def test_span_overlap_counts_time_both_run():
+    # NCCL 0-10 and 20-30 us; attention 5-25 us: 5 + 5 us at once.
+    both, a, b = chip_smoke.span_overlap_ms([(20, 30), (0, 10)], [(5, 15), (12, 25)])
+    assert (both, a, b) == (pytest.approx(0.01), pytest.approx(0.02), pytest.approx(0.02))
+
+
+def test_kernels_line_check_needs_the_pipeline_and_context_paths():
+    paths = PATHS + ["pipeline_gang", "context_gang"]
+    per_path = {"main_path": 156, "trainer": 156, "llama": 32, "moe": 96, "pipeline_gang": 72,
+                "context_gang": 36}
+    assert chip_smoke.check_kernels_line({"kernels": [_kernel(launches_per_path=per_path)]},
+                                         paths) == []
+    del per_path["context_gang"]
+    assert "flash_fwd: no launch on context_gang" in chip_smoke.check_kernels_line(
+        {"kernels": [_kernel(launches_per_path=per_path)]}, paths)
+
+
+@pytest.mark.parametrize("mesh", [{"pipeline": 2}, {"context": 2}])
+def test_pipe_ctx_gang_loop_runs_on_the_cpu(mesh):
+    # The pipe_ctx_gang phase's gangs at a toy size on the CPU: the stages
+    # (or context ranks) report the same losses, nothing is left after.
+    from ray_tpu_torch.air import ScalingConfig
+
+    cut = dict(n_layer=2, n_head=2, d_model=64, vocab_size=256, max_seq_len=128)
+    config = {"model": "gpt2_small", "cut": cut, "global_batch": 4, "seq": 32, "warmup": 1,
+              "timed": 1, "device": "cpu"}
+    out = chip_smoke.run_mesh_gang(ScalingConfig(num_workers=2, mesh=mesh), "gloo", config,
+                                   "test_pipe_ctx_gang")
+    r0, r1 = out["ranks"]
+    axis = next(iter(mesh))
+    from ray_tpu_torch.parallel import AXIS_ORDER
+
+    assert r0["mesh_shape"][AXIS_ORDER.index(axis)] == 2
+    assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 2
+    assert all(x == x for x in r0["losses"])  # finite
     assert not out["leftover_session_dirs"] and not out["leftover_worker_pids"]

@@ -2,15 +2,21 @@
 the JAX package on the CPU.
 
 - One 4-rank gloo gang (subprocesses that never import JAX, under a time
-  limit of their own) trains nano GPT on ``{data 4}``, ``{fsdp 4}`` and
-  ``{data 2, tensor 2}``, nano Llama (GQA) on ``{fsdp 2, tensor 2}``, nano
-  MoE GPT on ``{data 2, fsdp 2}`` and nano ResNet on ``{fsdp 4}``, 3 steps
-  each in f32, from the JAX package's initial weights carried across with
+  limit of their own) trains nano GPT on ``{data 4}``, ``{fsdp 4}``,
+  ``{data 2, tensor 2}``, ``{pipeline 2, data 2}``, ``{pipeline 2, tensor
+  2}`` and ``{data 2, context 2}``, nano Llama (GQA) on ``{fsdp 2, tensor
+  2}`` and ``{pipeline 2, context 2}`` (RoPE at global positions inside a
+  stage), nano MoE GPT on ``{data 2, fsdp 2}`` and ``{pipeline 2, data 2}``
+  (the aux over real ticks) and nano ResNet on ``{fsdp 4}``, 3 steps each in
+  f32, from the JAX package's initial weights carried across with
   ``params_from_numpy``. The JAX package's ``make_train_step`` runs the same
-  mesh shape over 4 of the 8 virtual devices ``tests/conftest.py`` gives it.
-  Losses rtol 1e-4 (the JAX package's own bar for a mesh against one device,
-  ``tests/test_models.py``), grad norms rtol 1e-4; the losses also against
-  the port on one device.
+  mesh shape over 4 of the 8 virtual devices ``tests/conftest.py`` gives it
+  (over a context axis, on ``inputs``/``targets`` split from the tokens, as
+  ``tests/test_models.py`` feeds it). Losses rtol 1e-4 (the JAX package's
+  own bar for a mesh against one device, ``tests/test_models.py``), grad
+  norms rtol 1e-4; the losses also against the port on one device, except
+  MoE on a pipeline, whose aux is by definition a mean over microbatches
+  (the JAX package's too) and so not one device's.
 - The gathered params after 3 steps, against the JAX package's mesh run and
   the port's own single-device run: atol 1e-5 at every element whose first
   gradient in the JAX package (one device) lies outside ``ADAM_BAND``. Inside
@@ -27,11 +33,13 @@ the JAX package on the CPU.
   3 steps can move a param apart, 3 x lr.
 - ``forward(mesh=)`` after those steps gives the global logits as a
   DTensor, equal to one device's forward of the gathered params.
-- A 2-worker ``TorchTrainer`` with ``ScalingConfig(mesh={"fsdp": 2})`` and
-  ``TorchConfig(device="cpu")``: ``session.get_mesh()`` is a ``DeviceMesh``
-  with the six axis names, and the losses equal the port's single-device run
-  (rtol 1e-5). Without ``device="cpu"`` the mesh wants the GPU and raises.
-- A mesh with pipeline, context or expert parallelism raises.
+- A 2-worker ``TorchTrainer`` with ``ScalingConfig(mesh={"fsdp": 2})``,
+  ``{"pipeline": 2}`` or ``{"context": 2}`` and ``TorchConfig(device="cpu")``:
+  ``session.get_mesh()`` is a ``DeviceMesh`` with the six axis names, each
+  rank holds its shard (a stage its layer, a context rank its half of each
+  sequence), and the losses equal the port's single-device run (rtol 1e-5).
+  Without ``device="cpu"`` the mesh wants the GPU and raises.
+- A mesh with expert parallelism raises.
 """
 
 import json
@@ -74,6 +82,11 @@ CASES = [
     ("llama", {"fsdp": 2, "tensor": 2}),
     ("moe", {"data": 2, "fsdp": 2}),
     ("resnet", {"fsdp": 4}),
+    ("gpt", {"pipeline": 2, "data": 2}),
+    ("gpt", {"pipeline": 2, "tensor": 2}),
+    ("gpt", {"data": 2, "context": 2}),
+    ("llama", {"pipeline": 2, "context": 2}),
+    ("moe", {"pipeline": 2, "data": 2}),
 ]
 
 # Each rank of the gang: joins a gloo process group, then for each case
@@ -117,7 +130,7 @@ for i, (kind, axes) in enumerate(args["cases"]):
         gnorms.append(m["grad_norm"].item())
     gathered = tree_map(lambda v: v.full_tensor().detach().numpy(), state.params)
     x = batch["images"] if kind == "resnet" else shard_batch(
-        {"tokens": inputs["batch"][kind]["tokens"][:, :-1]}, mesh)["tokens"]
+        {"inputs": inputs["batch"][kind]["tokens"][:, :-1]}, mesh)["inputs"]
     with torch.no_grad():
         logits = model.forward(state.params, x, cfg, mesh=mesh)
     forward = {"shape": list(logits.shape), "local_shape": list(logits.to_local().shape),
@@ -182,6 +195,8 @@ def _jax_run(kind, axes, batch):
     cfg, opt = _jax_config(kind), j_optimizer(learning_rate=LR)
     state = j_create(cfg, jax.random.PRNGKey(0), opt, mesh=mesh)
     step = j_step(cfg, opt, mesh=mesh, donate=False)
+    if axes.get("context", 1) > 1:
+        batch = {"inputs": batch["tokens"][:, :-1], "targets": batch["tokens"][:, 1:]}
     batch = j_shard_batch({k: jnp.asarray(v) for k, v in batch.items()}, mesh)
     losses, gnorms = [], []
     for _ in range(STEPS):
@@ -275,13 +290,15 @@ def assert_params_close(got, want, init, band, name):
 @pytest.mark.parametrize("case", range(len(CASES)),
                          ids=[f"{k}-" + "_".join(f"{a}{n}" for a, n in m.items()) for k, m in CASES])
 def test_mesh_train_steps_match_jax(gang, case):
-    kind, _ = CASES[case]
+    kind, axes = CASES[case]
     ref_losses, ref_gnorms, ref_params = gang["ref"][case]
     ours = gang["ours"][case]
     np.testing.assert_allclose(ours["losses"], ref_losses, rtol=LOSS_RTOL)
     np.testing.assert_allclose(ours["gnorms"], ref_gnorms, rtol=GNORM_RTOL)
     single_losses, single_params = gang["single"][kind]
-    np.testing.assert_allclose(ours["losses"], single_losses, rtol=LOSS_RTOL)
+    one_device = not (kind == "moe" and axes.get("pipeline", 1) > 1)
+    if one_device:
+        np.testing.assert_allclose(ours["losses"], single_losses, rtol=LOSS_RTOL)
     assert ours["losses"][-1] < ours["losses"][0]
     got_params, first, init = _flatten(ours["params"]), gang["first"][kind], gang["init"][kind]
     assert set(got_params) == set(ref_params) == set(single_params) == set(first)
@@ -291,7 +308,7 @@ def test_mesh_train_steps_match_jax(gang, case):
     for name in sorted(got_params):
         band = bands[name]
         assert band.mean() <= MAX_BAND_SHARE, (name, band.mean())
-        for want in (ref_params[name], single_params[name]):
+        for want in (ref_params[name], single_params[name])[:2 if one_device else 1]:
             assert_params_close(got_params[name], want, init[name], band, name)
 
 
@@ -314,7 +331,8 @@ def test_mesh_forward_is_the_global_logits(gang, case):
     assert out["shape"] == list(want.shape)
     rows = want.shape[0] // (axes.get("data", 1) * axes.get("fsdp", 1))
     cols = want.shape[-1] // axes.get("tensor", 1)
-    assert out["local_shape"] == [rows, *want.shape[1:-1], cols]
+    seq = [want.shape[1] // axes.get("context", 1)] if want.ndim == 3 else []
+    assert out["local_shape"] == [rows, *seq, cols]
     np.testing.assert_allclose(out["logits"], want, atol=1e-5, rtol=1e-5)
 
 
@@ -341,33 +359,31 @@ def _make_fsdp_loop():
             losses.append(m["loss"].item())
         session.report({"losses": losses, "mesh_dim_names": list(mesh.mesh_dim_names),
                         "mesh_shape": list(mesh.mesh.shape),
-                        "fc_w_local": list(state.params["blocks"]["fc_w"].to_local().shape)})
+                        "fc_w_local": list(state.params["blocks"]["fc_w"].to_local().shape),
+                        "batch_local": {k: list(v.to_local().shape) for k, v in batch.items()}})
 
     return loop
 
 
-def test_torch_trainer_fsdp_mesh_matches_one_device():
+def _trainer_losses(mesh, tokens):
+    """``_make_fsdp_loop`` through a 2-worker ``TorchTrainer`` on ``mesh``
+    (on the CPU), and the port's single-device losses on the same tokens."""
     from ray_tpu_torch.air import ScalingConfig
     from ray_tpu_torch.models import GPTConfig, create_train_state, default_optimizer
     from ray_tpu_torch.models import make_train_step, shard_batch
     from ray_tpu_torch.train.torch import TorchConfig, TorchTrainer
 
-    tokens = np.random.default_rng(1).integers(0, 256, (B, S + 1)).astype(np.int32)
     ray_tpu_torch.init(num_cpus=4)
     try:
         result = TorchTrainer(
             _make_fsdp_loop(),
             train_loop_config={"lr": LR, "steps": STEPS, "tokens": tokens.tolist()},
-            scaling_config=ScalingConfig(num_workers=2, mesh={"fsdp": 2}),
+            scaling_config=ScalingConfig(num_workers=2, mesh=mesh),
             backend_config=TorchConfig(device="cpu"),
         ).fit()
     finally:
         ray_tpu_torch.shutdown()
     assert result.error is None, result.error
-    m = result.metrics
-    assert m["mesh_dim_names"] == ["data", "fsdp", "pipeline", "expert", "context", "tensor"]
-    assert m["mesh_shape"] == [1, 2, 1, 1, 1, 1]
-    assert m["fc_w_local"] == [2, 32, 256]  # (L, d/fsdp, F)
     cfg = GPTConfig.nano(dtype=torch.float32)
     opt = default_optimizer(learning_rate=LR)
     state = create_train_state(cfg, 0, opt, device="cpu")
@@ -377,6 +393,32 @@ def test_torch_trainer_fsdp_mesh_matches_one_device():
     for _ in range(STEPS):
         state, out = step(state, batch)
         losses.append(out["loss"].item())
+    return result.metrics, losses
+
+
+def test_torch_trainer_fsdp_mesh_matches_one_device():
+    tokens = np.random.default_rng(1).integers(0, 256, (B, S + 1)).astype(np.int32)
+    m, losses = _trainer_losses({"fsdp": 2}, tokens)
+    assert m["mesh_dim_names"] == ["data", "fsdp", "pipeline", "expert", "context", "tensor"]
+    assert m["mesh_shape"] == [1, 2, 1, 1, 1, 1]
+    assert m["fc_w_local"] == [2, 32, 256]  # (L, d/fsdp, F)
+    np.testing.assert_allclose(m["losses"], losses, rtol=1e-5)
+
+
+@pytest.mark.parametrize("axis", ["pipeline", "context"])
+def test_torch_trainer_pipeline_and_context_meshes_match_one_device(axis):
+    # A stage holds its one of the two layers; a context rank holds half of
+    # each sequence, the tokens split into inputs and targets.
+    tokens = np.random.default_rng(1).integers(0, 256, (B, S + 1)).astype(np.int32)
+    m, losses = _trainer_losses({axis: 2}, tokens)
+    assert m["mesh_dim_names"] == ["data", "fsdp", "pipeline", "expert", "context", "tensor"]
+    assert m["mesh_shape"] == [1, 1, 2, 1, 1, 1] if axis == "pipeline" else [1, 1, 1, 1, 2, 1]
+    if axis == "pipeline":
+        assert m["fc_w_local"] == [1, 64, 256]  # (L/P, d, F)
+        assert m["batch_local"] == {"tokens": [B, S + 1]}
+    else:
+        assert m["fc_w_local"] == [2, 64, 256]
+        assert m["batch_local"] == {"inputs": [B, S // 2], "targets": [B, S // 2]}
     np.testing.assert_allclose(m["losses"], losses, rtol=1e-5)
 
 
@@ -408,16 +450,19 @@ def test_trainer_mesh_wants_the_gpu_unless_the_cpu_is_asked_for():
 
 
 def test_pipeline_context_and_expert_axes_raise():
+    # Since pipeline and context parallelism were ported only the expert
+    # axis raises; the name is kept from when all three did.
     from ray_tpu_torch.air import ScalingConfig
     from ray_tpu_torch.models import GPTConfig, create_train_state, default_optimizer
     from ray_tpu_torch.parallel import MeshSpec
 
     cfg = GPTConfig.nano(dtype=torch.float32)
-    for axis in ("pipeline", "context", "expert"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-            ScalingConfig(num_workers=2, mesh={axis: 2})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-            create_train_state(cfg, 0, default_optimizer(), mesh=MeshSpec(**{axis: 2}))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
+        ScalingConfig(num_workers=2, mesh={"expert": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
+        create_train_state(cfg, 0, default_optimizer(), mesh=MeshSpec(expert=2))
+    for axis in ("pipeline", "context"):
+        ScalingConfig(num_workers=2, mesh={axis: 2})  # ported: accepted
 
 
 if __name__ == "__main__":

@@ -144,8 +144,8 @@ def test_build_is_keyed_by_source_hash():
 
 
 def test_what_is_not_ported_raises():
-    # MoE, the "dots" remat policy and data/fsdp/tensor meshes are ported
-    # now; pipeline, context and expert parallelism are not.
+    # MoE, the "dots" remat policy and data/fsdp/tensor/pipeline/context
+    # meshes are ported now; expert parallelism is not.
     cfg = GPTConfig.nano(dtype=torch.float32)
     tokens = {"tokens": torch.zeros((1, 9), dtype=torch.int32)}
     from ray_tpu_torch.models.gpt import loss_fn
@@ -155,10 +155,10 @@ def test_what_is_not_ported_raises():
                     GPTConfig.nano(dtype=torch.float32, remat_policy="dots")):
         assert torch.isfinite(loss_fn(init_params(zoo_cfg, 0, device="cpu"), tokens, zoo_cfg))
 
-    for axis in ("pipeline", "context", "expert"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-            make_train_step(cfg, default_optimizer(), mesh=MeshSpec(**{axis: 2}))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
+        make_train_step(cfg, default_optimizer(), mesh=MeshSpec(expert=2))
     make_train_step(cfg, default_optimizer(), mesh=MeshSpec(data=2, fsdp=2, tensor=2))
+    make_train_step(cfg, default_optimizer(), mesh=MeshSpec(pipeline=2, context=2))
     # A config of no known family is taken as GPT, as in the JAX package.
     from ray_tpu_torch.models.training import model_for
 
@@ -375,7 +375,7 @@ def test_gpu_seams_of_the_train_stack():
     assert TorchConfig().resolve_backend(gpu._resources) == "nccl"
     assert TorchConfig().resolve_backend(ScalingConfig()._resources) == "gloo"
     assert TorchConfig(backend="gloo").resolve_backend(gpu._resources) == "gloo"
-    for not_ported in (lambda: ScalingConfig(mesh={"data": 2, "pipeline": 2}),
+    for not_ported in (lambda: ScalingConfig(mesh={"data": 2, "expert": 2}),
                        lambda: save_pytree({}, "unused"),
                        lambda: load_pytree("unused"),
                        lambda: placement_group([{"GPU": 1}], strategy="TPU_SLICE")):

@@ -9,6 +9,9 @@ package's (ray_tpu.parallel) on the CPU.
   devices ``tests/conftest.py`` gives it.
 - ``MeshSpec``'s shape and axis order, and a wrong device count raising.
 - The DTensor placements a spec becomes.
+- The pipeline's ``to_stages`` against the JAX package's on the same
+  arrays, and its microbatch counts: the reference's default M and its
+  split over batch shards.
 """
 
 import dataclasses
@@ -129,3 +132,36 @@ def test_mesh_spec_wrong_device_count():
     jspec = dataclasses.replace(JMeshSpec(), data=3)
     with pytest.raises(ValueError):
         jspec.build()  # 8 virtual devices
+
+
+def test_to_stages_matches_the_jax_packages():
+    import numpy as np
+
+    from ray_tpu.parallel.pipeline import to_stages as j_to_stages
+    from ray_tpu_torch.parallel.pipeline import to_stages
+
+    blocks = {"w": np.arange(4 * 3 * 2, dtype=np.float32).reshape(4, 3, 2),
+              "moe": {"b": np.arange(8, dtype=np.float32).reshape(4, 2)}}
+    want = j_to_stages(jax.tree.map(jnp.asarray, blocks), 2)
+    got = to_stages({"w": torch.as_tensor(blocks["w"]),
+                     "moe": {"b": torch.as_tensor(blocks["moe"]["b"])}}, 2)
+    assert torch.equal(got["w"], torch.as_tensor(np.asarray(want["w"])))
+    assert torch.equal(got["moe"]["b"], torch.as_tensor(np.asarray(want["moe"]["b"])))
+    with pytest.raises(ValueError, match="not divisible"):
+        to_stages({"w": torch.zeros(3, 2)}, 2)
+
+
+def test_microbatches_default_and_split_over_batch_shards():
+    from types import SimpleNamespace
+
+    from ray_tpu_torch.parallel.pipeline import default_microbatches, microbatches
+
+    assert default_microbatches(16, 2) == 4 and default_microbatches(4, 4) == 4
+    assert default_microbatches(6, 2) == 2
+    # B 64 over 2 data ranks, 2 stages: M 4, two microbatches per shard.
+    assert microbatches(SimpleNamespace(batch_shards=2, pp=2), 32) == (4, 2)
+    assert microbatches(SimpleNamespace(batch_shards=1, pp=2), 16, 8) == (8, 8)
+    with pytest.raises(ValueError, match="does not split over 4 batch shards"):
+        microbatches(SimpleNamespace(batch_shards=4, pp=2), 2, 2)
+    with pytest.raises(ValueError, match="do not divide its 6 rows"):
+        microbatches(SimpleNamespace(batch_shards=1, pp=2), 6, 4)

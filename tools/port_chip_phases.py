@@ -6,8 +6,9 @@ checkout or from another one (e.g. a parent commit unpacked with
     python3 tools/port_chip_phases.py [--checkout DIR] PHASE [PHASE ...]
 
 PHASE is ``resnet50`` (ResNet-50 at B 128), ``rl_learner_check``, ``rl``
-(every RLlib phase on one runtime) or ``mesh`` (``collective_nccl``, then
-``mesh_gang`` against the main path's first step, taken here). The phases run in this process, after the
+(every RLlib phase on one runtime), ``mesh`` (``collective_nccl``, then
+``mesh_gang`` against the main path's first step, taken here) or
+``pipe_ctx`` (``ring_check``, then ``pipe_ctx_gang`` against the same). The phases run in this process, after the
 flags ``chip_smoke.py`` sets (no TF32); each prints its JSON line, and the
 card's name and power limit come first. Run one checkout per process: both
 trees name their package ``ray_tpu_torch``. For an A/B, alternate them:
@@ -23,7 +24,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = {"resnet50": "phase_resnet50", "rl_learner_check": "phase_rl_learner_check",
-          "rl": "run_rl_phases", "mesh": "run_mesh_phases"}
+          "rl": "run_rl_phases", "mesh": "run_mesh_phases", "pipe_ctx": "run_pipe_ctx_phases"}
 
 
 def main(argv=None):

@@ -26,6 +26,20 @@ a failed check exits non-zero. The phases, all by default, in this order:
   on ``{"fsdp": 4}``, B 4 x S 8192 (1 row per card), 3 steps: the first loss
   against its value at init, 32 + 32 launches per rank per step, peak memory
   per card, tokens/s per GPU and MFU.
+- ``gpt2_pp2_dp2``, ``gpt2_cp2_dp2``: the gpt2 phases on ``{"pipeline": 2,
+  "data": 2}`` (GPipe, M 4: two 16-row microbatches per data rank) and
+  ``{"context": 2, "data": 2}`` (the ring over NCCL, s_local 512).
+- ``llama3_8b_pp4``: Llama 3 8B at full depth on ``{"pipeline": 4}`` (8
+  layers a stage), B 4 x S 8192, M 4 one-row microbatches, 3 steps: the first
+  loss against its value at init (and fsdp4's, where that phase ran first),
+  8 x 4 launches per rank per step, tokens/s per GPU, MFU, the bubble share
+  (P - 1) / (M + P - 1) beside the step time, peak memory per card.
+- ``llama3_8b_cp4``: Llama 3 8B at full width cut to 4 layers on
+  ``{"context": 4}``, one row of S 8192 (s_local 2048), 3 steps, the ring over
+  NCCL: the first loss against one card's on the same row and its tokens/s
+  (both measured first on card 0 in this process), 4 (r + 1) launches per
+  step on context rank r, the ring's rotation overlapping its kernels (device
+  ms in which both run), peak memory per card.
 
 ``--rehearse`` runs every phase on the CPU at toy sizes (gloo, nano
 configs, no launch or memory checks), to find faults before a chip call.
@@ -61,13 +75,15 @@ LLAMA_GLOBAL_B, LLAMA_S, LLAMA_STEPS = 4, 8192, 3
 # the fsdp and tensor runs' against dp's: the same weights and tokens, sums
 # split across ranks in another order.
 FIRST_LOSS_TOL = 1e-3
-PHASES = ("collective_bw", "gpt2_dp4", "gpt2_fsdp4", "gpt2_dp2_tp2", "llama3_8b_fsdp4")
+PHASES = ("collective_bw", "gpt2_dp4", "gpt2_fsdp4", "gpt2_dp2_tp2", "llama3_8b_fsdp4",
+          "gpt2_pp2_dp2", "gpt2_cp2_dp2", "llama3_8b_pp4", "llama3_8b_cp4")
+LLAMA_CP_LAYERS = 4  # chip_smoke's llama depth: one card holds it, for the baseline
 OUT = os.path.join(ROOT, "chiprun_out", "port_multichip.jsonl")
 
 # Toy sizes for --rehearse on the CPU.
 NANO_GPT = dict(n_layer=2, n_head=2, d_model=64, vocab_size=256, max_seq_len=128)
-NANO_LLAMA = dict(n_layer=2, n_head=4, n_kv_head=2, d_model=64, d_ff=128, vocab_size=256,
-                  max_seq_len=128)
+NANO_LLAMA = dict(n_layer=4, n_head=4, n_kv_head=2, d_model=64, d_ff=128, vocab_size=256,
+                  max_seq_len=128)  # 4 layers: one a stage on {pipeline 4}
 
 
 def record(line):
@@ -306,13 +322,15 @@ def one_card_baseline(smi, rehearse):
     return out
 
 
-def trainer_phase(name, smi, rehearse, mesh, model, global_batch, seq, warmup, timed):
+def trainer_phase(name, smi, rehearse, mesh, model, global_batch, seq, warmup, timed, cut=None):
     from ray_tpu_torch.air import ScalingConfig
 
-    cut = {}
+    cut = dict(cut or {})
     if rehearse:
-        cut = NANO_LLAMA if model == "llama3_8b" else NANO_GPT
-        global_batch, seq, warmup, timed = 8 if model != "llama3_8b" else 4, 32, 1, 1
+        cut = {**(NANO_LLAMA if model == "llama3_8b" else NANO_GPT),
+               **{k: v for k, v in cut.items() if k == "n_layer"}}
+        global_batch = min(global_batch, 8 if model != "llama3_8b" else 4)
+        seq, warmup, timed = 32, 1, 1
     scaling = ScalingConfig(num_workers=WORLD, use_gpu=not rehearse, mesh=mesh)
     config = {"model": model, "cut": cut, "global_batch": global_batch, "seq": seq,
               "warmup": warmup, "timed": timed}
@@ -334,6 +352,7 @@ def trainer_phase(name, smi, rehearse, mesh, model, global_batch, seq, warmup, t
             "state_peak_gib_per_rank": [r["state_peak_gib"] for r in ranks],
             "init_s_per_rank": [r["init_s"] for r in ranks],
             "launches_per_step_rank0": r0["launches_per_step"],
+            "p2p_overlap_per_step_per_rank": [r["p2p_overlap_per_step"] for r in ranks],
             "devices": [(r["cuda_visible_devices"], r["device"]) for r in ranks],
             "fit_s": out["fit_s"], "leftover_session_dirs": out["leftover_session_dirs"],
             "leftover_worker_pids": out["leftover_worker_pids"], "card": smi}
@@ -348,10 +367,15 @@ def trainer_phase(name, smi, rehearse, mesh, model, global_batch, seq, warmup, t
     return line, ranks
 
 
-def check_launches(name, ranks, n_layer, rehearse):
-    if not rehearse:
-        for r in ranks:
-            chip_smoke.check_launches(f"{name} rank {r['rank']}", r, n_layer)
+def check_launches(name, ranks, mesh, n_layer, global_batch, rehearse):
+    """Each rank's launches per step: n_layer each off a pipeline or context
+    axis, else ``chip_smoke.pipe_ctx_expected_launches``."""
+    if rehearse:
+        return
+    expected = chip_smoke.pipe_ctx_expected_launches(mesh or {"data": WORLD}, n_layer,
+                                                     global_batch)
+    for r in ranks:
+        chip_smoke.check_launches(f"{name} rank {r['rank']}", r, expected[r["rank"]])
 
 
 def phase_gpt2(name, mesh, smi, rehearse, baseline, dp_first_loss=None):
@@ -367,7 +391,7 @@ def phase_gpt2(name, mesh, smi, rehearse, baseline, dp_first_loss=None):
     if dp_first_loss is not None:
         line["first_loss_abs_err_vs_dp4"] = abs(first - dp_first_loss)
     record(line)
-    check_launches(name, ranks, 2 if rehearse else 12, rehearse)
+    check_launches(name, ranks, mesh, 12, GPT_GLOBAL_B, rehearse)
     require(line["first_loss_abs_err_vs_one_card"] <= FIRST_LOSS_TOL,
             f"{name}: first loss {first} vs one card {baseline['one_card_loss_global_batch']}")
     if dp_first_loss is not None:
@@ -376,27 +400,109 @@ def phase_gpt2(name, mesh, smi, rehearse, baseline, dp_first_loss=None):
     return line
 
 
-def phase_llama(smi, rehearse):
-    from ray_tpu_torch.models import LlamaConfig, llama
+def llama_line(name, line, cfg, seq, rehearse):
+    """Params, flops per token and MFU per GPU for a Llama phase's line."""
+    from ray_tpu_torch.models import llama
+
+    flops = llama.train_flops_per_token(cfg, seq)
+    line.update(params=llama.num_params(cfg), train_flops_per_token=flops,
+                mfu_per_gpu=[flops * t / PEAK_BF16_FLOPS for t in line["tokens_per_s_per_gpu"]],
+                mfu_peak="989 TFLOP/s, H100 SXM dense bf16")
+    return line
+
+
+def phase_llama(smi, rehearse, name="llama3_8b_fsdp4", mesh=None, fsdp=None):
+    """Llama 3 8B at full depth: ``{"fsdp": 4}``, or ``{"pipeline": 4}``
+    (``llama3_8b_pp4``), B 4 x S 8192; beside ``fsdp``, the fsdp4 phase's
+    line of this run where it ran (the same weights and batch)."""
+    from ray_tpu_torch.models import LlamaConfig
 
     import dataclasses
 
-    line, ranks = trainer_phase("llama3_8b_fsdp4", smi, rehearse, {"fsdp": WORLD}, "llama3_8b",
-                                LLAMA_GLOBAL_B, LLAMA_S, 1, LLAMA_STEPS - 1)
+    mesh = mesh or {"fsdp": WORLD}
+    line, ranks = trainer_phase(name, smi, rehearse, mesh, "llama3_8b", LLAMA_GLOBAL_B,
+                                LLAMA_S, 1, LLAMA_STEPS - 1)
     cfg = dataclasses.replace(LlamaConfig.llama3_8b(), **(NANO_LLAMA if rehearse else {}))
     seq = line["seq"] if not rehearse else 32
     expected = chip_smoke.init_loss_expected(cfg.vocab_size, cfg.d_model)
-    flops = llama.train_flops_per_token(cfg, seq)
-    line.update(params=llama.num_params(cfg), init_loss_expected=expected,
-                first_loss_abs_err_vs_init=abs(line["losses"][0] - expected),
-                train_flops_per_token=flops,
-                mfu_per_gpu=[flops * t / PEAK_BF16_FLOPS for t in line["tokens_per_s_per_gpu"]],
-                mfu_peak="989 TFLOP/s, H100 SXM dense bf16")
-    record(line)
-    check_launches("llama3_8b_fsdp4", ranks, cfg.n_layer, rehearse)
+    line.update(init_loss_expected=expected,
+                first_loss_abs_err_vs_init=abs(line["losses"][0] - expected))
+    if fsdp is not None:
+        line.update(fsdp4_losses=fsdp["losses"],
+                    first_loss_abs_err_vs_fsdp4=abs(line["losses"][0] - fsdp["losses"][0]))
+    if mesh.get("pipeline", 1) > 1:
+        from ray_tpu_torch.parallel.pipeline import default_microbatches
+
+        m = default_microbatches(line["global_batch"], mesh["pipeline"])
+        line.update(microbatches=m, bubble_share=chip_smoke.bubble_share(mesh["pipeline"], m))
+    record(llama_line(name, line, cfg, seq, rehearse))
+    check_launches(name, ranks, mesh, cfg.n_layer, LLAMA_GLOBAL_B, rehearse)
     if not rehearse:
         require(line["first_loss_abs_err_vs_init"] <= chip_smoke.INIT_LOSS_TOL,
-                f"llama3_8b_fsdp4: first loss {line['losses'][0]}, expected {expected} at init")
+                f"{name}: first loss {line['losses'][0]}, expected {expected} at init")
+    if fsdp is not None:
+        require(line["first_loss_abs_err_vs_fsdp4"] <= FIRST_LOSS_TOL,
+                f"{name}: first loss {line['losses'][0]} vs fsdp4's {fsdp['losses'][0]}")
+    return line
+
+
+def llama_one_card(smi, rehearse, layers):
+    """Llama 3 8B cut to ``layers`` layers on card 0 in this process, on the
+    cp phase's row (numpy seed 0): the first loss, and tokens/s over 2 timed
+    steps after 1 (the rehearsal: the first loss alone, on the CPU)."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import (LlamaConfig, create_train_state, default_optimizer,
+                                      shard_batch)
+
+    cut = {**NANO_LLAMA, "n_layer": layers} if rehearse else {"n_layer": layers}
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), **cut)
+    seq = 32 if rehearse else LLAMA_S
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size - 1, (1, seq + 1))
+    device = "cpu" if rehearse else None
+    batch = shard_batch({"tokens": tokens.astype(np.int32)}, device=device)
+    opt = default_optimizer(learning_rate=3e-4)
+    state = create_train_state(cfg, 0, opt, device=device)
+    if rehearse:
+        from ray_tpu_torch.models import llama
+
+        with torch.no_grad():
+            out = {"losses": [llama.loss_fn(state.params, batch, cfg).item()]}
+    else:
+        _, _, run = chip_smoke.run_steps(cfg, opt, state, batch, warmup=1, timed=2, items=seq)
+        out = {k: run[k] for k in ("losses", "step_ms_median", "items_per_s", "peak_memory_gib")}
+    del state, batch
+    if not rehearse:
+        torch.cuda.empty_cache()
+    record({"phase": "llama_one_card", "n_layer": layers, "seq": seq, **out, "card": smi})
+    return out
+
+
+def phase_llama_cp4(smi, rehearse):
+    """Llama 3 8B at full width cut to 4 layers on ``{"context": 4}``, one row
+    of S 8192, against the same on card 0."""
+    from ray_tpu_torch.models import LlamaConfig
+
+    import dataclasses
+
+    name, mesh = "llama3_8b_cp4", {"context": WORLD}
+    one = llama_one_card(smi, rehearse, LLAMA_CP_LAYERS)
+    line, ranks = trainer_phase(name, smi, rehearse, mesh, "llama3_8b", 1, LLAMA_S, 1,
+                                LLAMA_STEPS - 1, cut={"n_layer": LLAMA_CP_LAYERS})
+    cut = {**NANO_LLAMA, "n_layer": LLAMA_CP_LAYERS} if rehearse else {"n_layer": LLAMA_CP_LAYERS}
+    cfg = dataclasses.replace(LlamaConfig.llama3_8b(), **cut)
+    line.update(one_card_first_loss=one["losses"][0],
+                first_loss_abs_err_vs_one_card=abs(line["losses"][0] - one["losses"][0]))
+    if "items_per_s" in one:
+        line.update(one_card_tokens_per_s=one["items_per_s"],
+                    tokens_per_s_per_gpu_over_one_card=[t / one["items_per_s"]
+                                                        for t in line["tokens_per_s_per_gpu"]])
+    record(llama_line(name, line, cfg, line["seq"] if not rehearse else 32, rehearse))
+    check_launches(name, ranks, mesh, cfg.n_layer, 1, rehearse)
+    require(line["first_loss_abs_err_vs_one_card"] <= FIRST_LOSS_TOL,
+            f"{name}: first loss {line['losses'][0]} vs one card's {one['losses'][0]}")
     return line
 
 
@@ -446,11 +552,16 @@ def main(argv=None):
         baseline = one_card_baseline(card, rehearse)
         dp = phase_gpt2("gpt2_dp4", None, card, rehearse, baseline)
         for name, mesh in (("gpt2_fsdp4", {"fsdp": WORLD}),
-                           ("gpt2_dp2_tp2", {"data": 2, "tensor": 2})):
+                           ("gpt2_dp2_tp2", {"data": 2, "tensor": 2}),
+                           ("gpt2_pp2_dp2", {"pipeline": 2, "data": 2}),
+                           ("gpt2_cp2_dp2", {"data": 2, "context": 2})):
             if name in gpt_phases:
                 phase_gpt2(name, mesh, card, rehearse, baseline, dp["losses"][0])
-    if "llama3_8b_fsdp4" in args.phases:
-        phase_llama(card, rehearse)
+    fsdp = phase_llama(card, rehearse) if "llama3_8b_fsdp4" in args.phases else None
+    if "llama3_8b_pp4" in args.phases:
+        phase_llama(card, rehearse, "llama3_8b_pp4", {"pipeline": WORLD}, fsdp)
+    if "llama3_8b_cp4" in args.phases:
+        phase_llama_cp4(card, rehearse)
     record({"phase": "done", "seconds": time.perf_counter() - t0, "phases": args.phases})
 
 
