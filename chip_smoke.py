@@ -78,20 +78,38 @@ exits non-zero and prints no result.
    4 steps, the forward kernel launched twice per layer per step (once in
    the backward's recompute), the first loss and grad norm against the main
    path's.
+8b. the rest of the mesh: ``expert_tp_gang``, the moe phase's MoE GPT-2
+   through ``TorchTrainer`` on ``{"expert": 2}`` (two 0.5-GPU ranks over
+   gloo, 4 experts a rank, the batch replicated), its first loss and grad
+   norm against the moe phase's within mesh_gang's limits and 12 + 12
+   launches a rank a step, then ResNet-50 on ``{"tensor": 2}`` at B 8
+   against one rank's first step; ``elastic_reshard``, GPT-2 small (f32)
+   under ``ScalingConfig(num_workers=2, elastic=True)``, each rank stashing
+   its ``shard_for_rank`` of the params and Adam moments every step
+   (``stash_checkpoint(rules=)``), rank 1 killed after round 3 by a
+   ``PreemptionSimulator``: the gang re-forms at world 1 from the in-memory
+   mirrors, the gathered state goes back on the card (``device_put_tree``)
+   equal bit for bit to what both ranks held, and the final loss equals an
+   uninterrupted one-rank run's within 1e-5.
 9. RLlib (``ray_tpu_torch.rllib``), on a numpy ``CartPole-v1`` (no
    gymnasium on this path): ``rl_learner_check``, a ``TorchLearner`` on the
    card against one on the CPU from the same weights and minibatches, 10
    updates each of PPO's, DQN's (double Q) and C51's loss, and each one's
-   host ms, device busy time, kernels and copies per update; then on one
+   host ms, device busy time, kernels and copies per update;
+   ``rl_mesh_learner``, two ``TorchLearner(mesh=)`` ranks on ``{"data":
+   2}`` (each half of every minibatch's rows) against one on the whole
+   minibatches, PPO's and DQN's 10 updates, DQN's also with importance
+   weights; then on one
    runtime (``init(num_cpus=4)``) ``ppo`` (12 ``train()`` iterations of the
    JAX test's configuration, learner on the card, two runners on CPU actors;
    best return > first + 30), ``dqn`` (until best return >= 60, at most 25
    iterations) and ``ppo_two_learners`` (two remote learners holding 0.5 GPU
    each, weights equal after each round), and ``rl_shutdown`` (nothing left
    after ``shutdown()``, no attention kernel launched by these phases).
-10. a ``kernels`` line (launches per path: main_path, trainer, mesh_gang,
-   pipeline_gang, context_gang (rank 0's), llama, moe, remat_dots; times at
-   the Llama shape too), checked for the keys the contract names,
+10. a ``kernels`` line (launches per path: ``KERNEL_PATHS``, rank 0's on a
+   gang; times at the Llama shape and of the ring's blocks with one SDPA
+   call on the whole sequence beside them), checked for the keys the
+   contract names,
    then the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -100,7 +118,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import glob
 import importlib.util
 import json
@@ -111,6 +131,8 @@ import subprocess
 import sys
 import threading
 import time
+
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -198,6 +220,52 @@ RING_BF16_REL, RING_LSE_TOL = 1e-2, 1e-4
 # path's, of the size by which the main path and plain attention differ
 # (held to the same limits in main_path).
 PIPE_CTX_TIMED = 2
+# The expert_tp_gang phase: the moe phase's model and batch (GPT-2 small, 8
+# Switch experts, B 16 x S 1024, bf16) through TorchTrainer on {expert 2}, two
+# 0.5-GPU ranks over gloo, each holding 4 experts a layer and the whole batch
+# (the batch is replicated over expert), 1 warmup and EXPERT_GANG_TIMED timed
+# steps. Its first loss and grad norm are held to the moe phase's with
+# mesh_gang's limits (LOSS_TOL, GRAD_NORM_RTOL): top-1 routing gives each
+# token's combine one nonzero term, so the f32 sum across the expert group
+# adds zeros, and every product runs on the same rows. {expert 2, tensor 2}
+# needs four ranks, each holding the whole batch's activations, which do not
+# fit one card four times: tools/port_multichip.py runs it. Then ResNet-50 on
+# {tensor 2} at B RESNET_TP_B (gloo carries every activation gather through
+# the host), held to one rank's first step on the same weights and images
+# with the same limits (each rank computes its output channels' products
+# whole; the classes' logsumexp is summed across the two).
+EXPERT_GANG_TIMED, RESNET_TP_B = 2, 8
+# The elastic_reshard phase: GPT-2 small in f32 compute, ELASTIC_B rows of S
+# 1024 a step, under ScalingConfig(num_workers=2, elastic=True) (two 0.5-GPU
+# ranks over gloo, {data 2}); each step every rank stashes its shard of the
+# params and Adam moments under ELASTIC_RULES (the large matrices split on
+# dim 0, the rest replicated), and a PreemptionSimulator kills rank 1 after
+# round ELASTIC_KILL_ROUND of ELASTIC_STEPS. f32 compute: its kernels and
+# products are deterministic (the bf16 backward's dq is not, PERF.md), so the
+# resumed state can be held bit for bit to what both ranks held, and the final
+# loss to an uninterrupted one-rank run's within ELASTIC_LOSS_RTOL (the
+# data-parallel steps sum the gradients' f32 parts in another order).
+ELASTIC_STEPS, ELASTIC_KILL_ROUND, ELASTIC_B = 6, 3, 8
+ELASTIC_RULES = [(r"(wte|wpe|qkv_w|out_w|fc_w|proj_w)$", ("data",)), (".*", ())]
+ELASTIC_LOSS_RTOL = 1e-5
+# A resized gang fetches every survivor's stash and mirrors (GPT-2 small's
+# f32 params and moments are 1.5 GB, half a rank's shard, up to 5 steps of
+# each): the phase's runtime holds them in a larger object store and waits
+# longer for each fetch than the defaults (2 GiB, 5 s) allow. The killed
+# rank's GPU share is free again at once (the process died, not the card),
+# so the gang would grow back after the default 30 s: these phases measure
+# a shrink, and wait an hour before a grow.
+ELASTIC_SYSTEM_CONFIG = {"object_store_memory": 16 << 30, "elastic_probe_timeout_s": 120.0,
+                         "elastic_grow_after_s": 3600.0}
+# The rl_mesh_learner phase: two TorchLearners on {data 2} (0.5-GPU ranks over
+# gloo), each taking half of every rl_learner_check minibatch's rows, held to
+# one TorchLearner on the whole minibatch with rl_learner_check's limits
+# (RL_TOL, RL_PARAM_TOL): the gradients are the mean of the halves' (one f32
+# all-reduce), equal for PPO's per-row means; DQN's weighted mean takes the
+# whole batch's weight sums (learner.batch_sum), held with the all-ones
+# weights of true final observations and with importance weights that
+# differ between the halves (dqn_weighted).
+RL_MESH_KINDS = ("ppo", "dqn", "dqn_weighted")
 
 
 def emit(obj):
@@ -327,28 +395,51 @@ def build_workload():
     return cfg, opt, state, batch
 
 
+def device_sync(device):
+    """Wait for the work queued on ``device``: a card's (the CPU runs each
+    op to its end)."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def reset_peak_memory(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_memory_gib(device):
+    """``max_memory_allocated`` in GiB on a card; 0 on the CPU (not measured)."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30 if torch.device(device).type == "cuda" else 0.0
+
+
 def run_steps(cfg, opt, state, batch, warmup=WARMUP, timed=TIMED, items=B * S, mesh=None):
     """``warmup`` + ``timed`` train steps, each timed between two
-    ``torch.cuda.synchronize()``s, with the launch counts set to 0 first.
+    ``device_sync``s, with the launch counts set to 0 first.
     Returns the state, the step function and a dict of losses, grad norms,
     step ms, ``items`` (tokens or images per step) per second, each step's
     launches and the peak memory. With a ``mesh``, this rank's part of a
     sharded step (``items`` this rank's share)."""
-    import torch
-
     from ray_tpu_torch.models import make_train_step
+    from ray_tpu_torch.models.training import tree_leaves
     from ray_tpu_torch.ops import launch_counts, reset_launch_counts
 
+    device = tree_leaves(state.params)[0].device
     step = make_train_step(cfg, opt, mesh=mesh)
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak_memory(device)
     reset_launch_counts()
     losses, gnorms, step_ms, per_step = [], [], [], []
     for _ in range(warmup + timed):
         before = launch_counts()
-        torch.cuda.synchronize()
+        device_sync(device)
         t0 = time.perf_counter()
         state, m = step(state, batch)
-        torch.cuda.synchronize()
+        device_sync(device)
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(m["loss"].item())
         gnorms.append(m["grad_norm"].item())
@@ -360,7 +451,7 @@ def run_steps(cfg, opt, state, batch, warmup=WARMUP, timed=TIMED, items=B * S, m
         "step_ms_median": med_ms, "items_per_s": items / (med_ms / 1e3),
         "step_ms_warmup": step_ms[:warmup],
         "launches_per_step": per_step, "launches": launch_counts(),
-        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        "peak_memory_gib": peak_memory_gib(device)}
 
 
 def profile_steps(step, state, batch, med_ms):
@@ -483,6 +574,9 @@ def attention_bounds(bh, seq, hd, elt=2):
 # What the chip contract asks of every kernel in the ``kernels`` line.
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
+# Every path the kernels line counts launches on: each must launch both kernels.
+KERNEL_PATHS = ("main_path", "trainer", "mesh_gang", "pipeline_gang", "context_gang", "llama",
+                "moe", "remat_dots", "expert_gang", "elastic_reshard")
 
 
 def check_kernels_line(line, paths):
@@ -632,7 +726,7 @@ def phase_moe(smi):
     require(len(dropped) == cfg.n_layer, f"moe: routed {len(dropped)} layers")
     del state, step, batch
     torch.cuda.empty_cache()
-    return run["launches"]
+    return run["launches"], losses[0], run["grad_norms"][0]
 
 
 def phase_resnet50(smi):
@@ -828,41 +922,36 @@ def mesh_train_loop(config):
     numpy seed 0, each rank keeping its shard of the global batch), the
     timed steps with launches counted per step, one profiled step for the
     collectives' time, and, from rank 0, the node's GPU resources while the
-    gang holds them. Returns what it measured. ``config["device"] == "cpu"``
-    is a rehearsal on the CPU (``tools/port_multichip.py --rehearse``): the
-    CUDA clock and memory calls become no-ops."""
+    gang holds them. Returns what it measured. A mesh on the CPU
+    (``config["device"] == "cpu"``) is a rehearsal (``tools/port_multichip.py
+    --rehearse``), with no memory measured."""
     import torch
-
-    if config.get("device") == "cpu":
-        for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
-            setattr(torch.cuda, name, lambda *a, **k: None)
-        torch.cuda.max_memory_allocated = lambda *a, **k: 0
-        torch.cuda.current_device = lambda: 0
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     import ray_tpu_torch
     from ray_tpu_torch.air import session
-    from ray_tpu_torch.models import (GPTConfig, LlamaConfig, create_train_state,
+    from ray_tpu_torch.models import (GPTConfig, LlamaConfig, ResNetConfig, create_train_state,
                                       default_optimizer, shard_batch)
+    from ray_tpu_torch.models.training import mesh_device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = session.get_mesh()
-    if config["model"] == "llama3_8b":
-        cfg = dataclasses.replace(LlamaConfig.llama3_8b(), **config.get("cut", {}))
-    else:
-        cfg = dataclasses.replace(GPTConfig.gpt2_small(), **config.get("cut", {}))
+    device = mesh_device(mesh)
+    preset = {"llama3_8b": LlamaConfig.llama3_8b, "resnet50": ResNetConfig.resnet50}.get(
+        config["model"], GPTConfig.gpt2_small)
+    cfg = dataclasses.replace(preset(), **config.get("cut", {}))
     opt = default_optimizer(learning_rate=3e-4)
     gb, seq = config["global_batch"], config["seq"]
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size - 1, (gb, seq + 1))
-    batch = shard_batch({"tokens": tokens.astype(np.int32)}, mesh)
-    torch.cuda.reset_peak_memory_stats()
+    batch = shard_batch(mesh_batch(cfg, gb, seq, config.get("image", 224)), mesh)
+    reset_peak_memory(device)
     t0 = time.perf_counter()
     state = create_train_state(cfg, 0, opt, mesh=mesh)
-    torch.cuda.synchronize()
+    device_sync(device)
     init_s = time.perf_counter() - t0
-    state_gib = torch.cuda.max_memory_allocated() / 2**30
-    # Tokens per GPU: a tensor-parallel group shares its rows.
+    state_gib = peak_memory_gib(device)
+    # Tokens (images: seq 1) per GPU: a tensor-parallel or expert group
+    # shares its rows.
     per_gpu = gb * seq // dist.get_world_size()
     state, step, run = run_steps(cfg, opt, state, batch, warmup=config["warmup"],
                                  timed=config["timed"], items=per_gpu, mesh=mesh)
@@ -870,7 +959,7 @@ def mesh_train_loop(config):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         state, _ = step(state, batch)
-        torch.cuda.synchronize()
+        device_sync(device)
     run["collective_ms_per_step"] = collective_ms_per_step(prof, 1)
     run["p2p_overlap_per_step"] = p2p_overlap_ms(prof)
     if dist.get_rank() == 0:
@@ -879,33 +968,75 @@ def mesh_train_loop(config):
     run.update(rank=dist.get_rank(), world=dist.get_world_size(), backend=dist.get_backend(),
                mesh_is_device_mesh=isinstance(mesh, DeviceMesh),
                mesh_dim_names=list(mesh.mesh_dim_names), mesh_shape=list(mesh.mesh.shape),
-               device=str(torch.device("cuda", torch.cuda.current_device())),
-               cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"), pid=os.getpid(),
-               init_s=init_s, state_peak_gib=state_gib, n_layer=cfg.n_layer,
-               tokens_per_gpu_per_step=per_gpu)
+               device=str(device), cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"), pid=os.getpid(),
+               init_s=init_s, state_peak_gib=state_gib, n_layer=getattr(cfg, "n_layer", None),
+               tokens_per_gpu_per_step=per_gpu, local_shapes=local_shapes(state.params))
     return run
 
 
-def run_mesh_gang(scaling, backend, config, name):
-    """``mesh_train_loop`` through ``TorchTrainer`` on a fresh runtime; every
-    rank's report (the runtime forwards rank 0's, so each rank also puts its
-    own under a KV key), the runtime's worker pids, and what is left after
-    ``shutdown()``."""
+def mesh_batch(cfg, global_batch, seq, image=224):
+    """The host batch of a mesh phase, from numpy seed 0: tokens (B, S + 1)
+    for an LM, as ``build_workload`` draws them; images (B, image, image, 3)
+    and labels for ResNet, as ``phase_resnet50`` draws them."""
+    rng = np.random.default_rng(0)
+    if hasattr(cfg, "stage_sizes"):
+        return {"images": rng.standard_normal((global_batch, image, image, 3)).astype(np.float32),
+                "labels": rng.integers(0, cfg.num_classes, (global_batch,)).astype(np.int32)}
+    return {"tokens": rng.integers(0, cfg.vocab_size - 1, (global_batch, seq + 1))
+            .astype(np.int32)}
+
+
+def local_shapes(params):
+    """This rank's shard shapes of the leaves a mesh splits in the phases'
+    models: the MoE experts' first products, the dense first products, the
+    stem's convolution and the classifier head."""
+    blocks = params.get("blocks", {})
+    leaves = {"moe.fc_w": blocks.get("moe", {}).get("fc_w"), "fc_w": blocks.get("fc_w"),
+              "stem.conv": params.get("stem", {}).get("conv"),
+              "head.w": params.get("head", {}).get("w")}
+    return {k: list(v.to_local().shape) for k, v in leaves.items() if v is not None}
+
+
+@dataclasses.dataclass
+class ElasticRun:
+    """What an elastic gang's ``run_mesh_gang`` adds: the preemption
+    simulator its fit runs under, the runtime's system config, and the
+    process group's timeout (None: ``TorchConfig``'s)."""
+    simulator: Any
+    system_config: Dict[str, Any] = dataclasses.field(
+        default_factory=lambda: dict(ELASTIC_SYSTEM_CONFIG))
+    group_timeout_s: Optional[float] = None
+
+
+def run_mesh_gang(scaling, backend, config, name, loop=None, elastic=None):
+    """``loop`` (``mesh_train_loop`` by default) on every rank through
+    ``TorchTrainer`` on a fresh runtime; every rank's report (the runtime
+    forwards rank 0's, so each rank also puts its own under a KV key; an
+    elastic gang's are its last world's), the KV store's other entries under
+    ``name``, the runtime's worker pids, and what is left after
+    ``shutdown()``. ``elastic``: an ``ElasticRun``; an elastic gang may lose
+    no failure budget."""
     import ray_tpu_torch
     import ray_tpu_torch.train.torch as rt_torch
-    from ray_tpu_torch.air import RunConfig
+    from ray_tpu_torch.air import FailureConfig, RunConfig
 
-    ray_tpu_torch.init(num_cpus=max(4, scaling.num_workers + 2))
+    ray_tpu_torch.init(num_cpus=max(4, scaling.num_workers + 2),
+                       _system_config=elastic and elastic.system_config)
     session_dir = ray_tpu_torch._private.worker.global_worker.session_dir
     node = ray_tpu_torch.cluster_resources()
+    timeout = {"init_timeout_s": elastic.group_timeout_s} \
+        if elastic and elastic.group_timeout_s else {}
     trainer = rt_torch.TorchTrainer(
-        _per_rank_reports, train_loop_config={**config, "kv_key": name},
-        scaling_config=scaling,
-        backend_config=rt_torch.TorchConfig(backend=backend, device=config.get("device")),
-        run_config=RunConfig(name=name, storage_path=os.path.join(session_dir, "results")))
+        functools.partial(_per_rank_reports, loop or mesh_train_loop),
+        train_loop_config={**config, "kv_key": name}, scaling_config=scaling,
+        backend_config=rt_torch.TorchConfig(backend=backend, device=config.get("device"),
+                                            **timeout),
+        run_config=RunConfig(name=name, storage_path=os.path.join(session_dir, "results"),
+                             failure_config=FailureConfig(max_failures=0)))
     t0 = time.perf_counter()
     try:
-        result = trainer.fit()
+        with elastic.simulator if elastic else contextlib.nullcontext():
+            result = trainer.fit()
         error = result.error
     except Exception as e:  # printed with the workers' logs, then raised
         error = e
@@ -917,26 +1048,30 @@ def run_mesh_gang(scaling, backend, config, name):
         raise error
     from ray_tpu_torch._private.worker import global_worker
 
-    ranks = [json.loads(global_worker.context.kv("get", f"{name}/{r}".encode()))
-             for r in range(scaling.num_workers)]
+    kv = {k.decode(): json.loads(global_worker.context.kv("get", k))
+          for k in global_worker.context.kv("keys", f"{name}/".encode())}
+    reports = {int(k[len(name) + 1:]): v for k, v in kv.items() if k[len(name) + 1:].isdigit()}
+    ranks = [reports[r] for r in sorted(reports)]
+    events = global_worker.context.cluster_events({"kind": "train_gang_resize"})
     pids = runtime_worker_pids() | {r["pid"] for r in ranks}
     ray_tpu_torch.shutdown()
     leftover_dirs = [session_dir] if os.path.exists(session_dir) else []
     leftover_pids = sorted(p for p in pids if pid_alive(p))
-    return {"ranks": ranks, "node_resources": node, "fit_s": fit_s,
+    return {"ranks": ranks, "kv": kv, "resize_events": [e["data"] for e in events],
+            "node_resources": node, "fit_s": fit_s, "result_metrics": result.metrics,
             "leftover_session_dirs": leftover_dirs, "leftover_worker_pids": leftover_pids}
 
 
-def _per_rank_reports(config):
-    """``mesh_train_loop`` on each rank, its result put in the KV store under
-    ``<kv_key>/<rank>`` for the calling process (a run's Result holds rank 0's report
-    alone), then reported."""
+def _per_rank_reports(loop, config):
+    """``loop`` on each rank, its result put in the KV store under
+    ``<kv_key>/<rank>`` for the calling process (a run's Result holds rank
+    0's report alone), then reported."""
     import torch.distributed as dist
 
     from ray_tpu_torch._private.worker import global_worker
     from ray_tpu_torch.air import session
 
-    run = mesh_train_loop(config)
+    run = loop(config)
     blob = json.dumps(run, default=float).encode()
     global_worker.context.kv("put", f"{config['kv_key']}/{dist.get_rank()}".encode(), blob)
     session.report(run)
@@ -1008,6 +1143,390 @@ def phase_mesh_gang(smi, main_loss, main_gnorm):
             f"mesh_gang: left after shutdown: {out['leftover_session_dirs']}, "
             f"{out['leftover_worker_pids']}")
     return r0["launches"]
+
+
+def phase_expert_tp_gang(smi, moe_loss, moe_gnorm):
+    """The moe phase's MoE GPT-2 through ``TorchTrainer`` on ``{"expert":
+    2}`` (two 0.5-GPU ranks over gloo, each holding 4 of every layer's 8
+    experts), against the moe phase's first loss and grad norm; then
+    ResNet-50 on ``{"tensor": 2}`` at B ``RESNET_TP_B``, against one rank's
+    first step on the same weights and images. Returns rank 0's launches on
+    the MoE gang."""
+    import torch
+
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.models import ResNetConfig, create_train_state, default_optimizer
+    from ray_tpu_torch.models import shard_batch
+
+    cases = {}
+    # One rank's ResNet-50 first step at the gang's batch, on this card.
+    cfg = ResNetConfig.resnet50()
+    opt = default_optimizer(learning_rate=3e-4)
+    state = create_train_state(cfg, 0, opt)
+    _, _, one = run_steps(cfg, opt, state, shard_batch(mesh_batch(cfg, RESNET_TP_B, 1)),
+                          warmup=0, timed=1, items=RESNET_TP_B)
+    del state
+    torch.cuda.empty_cache()
+    for name, mesh, config, ref, per_step in (
+            ("moe_expert2", {"expert": 2},
+             {"model": "gpt2_small", "cut": {"moe_experts": MOE_EXPERTS}, "global_batch": B,
+              "seq": S, "warmup": 1, "timed": EXPERT_GANG_TIMED}, (moe_loss, moe_gnorm), 12),
+            ("resnet50_tensor2", {"tensor": 2},
+             {"model": "resnet50", "global_batch": RESNET_TP_B, "seq": 1, "warmup": 1,
+              "timed": EXPERT_GANG_TIMED}, (one["losses"][0], one["grad_norms"][0]), 0)):
+        scaling = ScalingConfig(num_workers=2, use_gpu=True, gpus_per_worker=0.5, mesh=mesh)
+        out = run_mesh_gang(scaling, "gloo", config, f"chip_smoke_{name}")
+        ranks = out["ranks"]
+        r0 = ranks[0]
+        line = {"phase": "expert_tp_gang", "name": name, "entry": "TorchTrainer.fit",
+                "mesh": mesh, "backend": "gloo", "num_workers": 2, "gpus_per_worker": 0.5,
+                "model": config["model"], "global_batch": config["global_batch"],
+                "seq": config["seq"], "mesh_shape": r0["mesh_shape"],
+                "local_shapes_per_rank": [r["local_shapes"] for r in ranks],
+                "losses": r0["losses"], "grad_norms": r0["grad_norms"],
+                "reference_first_loss": ref[0], "reference_first_grad_norm": ref[1],
+                "reference": "moe phase (one card)" if per_step else "one rank on this card",
+                "first_loss_abs_err": abs(r0["losses"][0] - ref[0]),
+                "first_grad_norm_rel_err": abs(r0["grad_norms"][0] - ref[1]) / ref[1],
+                "tol": {"loss_abs": LOSS_TOL, "grad_norm_rel": GRAD_NORM_RTOL},
+                "expected_launches_per_rank_per_step": per_step,
+                "per_rank": [{k: r[k] for k in (
+                    "rank", "pid", "device", "step_ms_timed", "step_ms_median", "items_per_s",
+                    "launches_per_step", "collective_ms_per_step", "peak_memory_gib",
+                    "state_peak_gib", "init_s")} for r in ranks],
+                "fit_s": out["fit_s"], "leftover_session_dirs": out["leftover_session_dirs"],
+                "leftover_worker_pids": out["leftover_worker_pids"], "card": smi}
+        emit(line)
+        require(all(r["losses"] == r0["losses"] for r in ranks), f"{name}: ranks disagree")
+        require(line["first_loss_abs_err"] <= LOSS_TOL,
+                f"{name}: first loss {r0['losses'][0]} vs {ref[0]}")
+        require(line["first_grad_norm_rel_err"] <= GRAD_NORM_RTOL,
+                f"{name}: first grad norm {r0['grad_norms'][0]} vs {ref[1]}")
+        for r in ranks:
+            check_launches(f"{name} rank {r['rank']}", r, per_step)
+            require(all(math.isfinite(x) for x in r["losses"]), f"{name}: losses {r['losses']}")
+        require(not out["leftover_session_dirs"] and not out["leftover_worker_pids"],
+                f"{name}: left after shutdown: {out['leftover_session_dirs']}, "
+                f"{out['leftover_worker_pids']}")
+        cases[name] = r0["launches"]
+    return cases["moe_expert2"]
+
+
+def state_digest(tree):
+    """sha256 of a state tree's leaves (tensors whole, on the host; numbers),
+    in ``resharding.tree_paths`` order: equal digests are equal bits."""
+    import hashlib
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.train.torch.resharding import tree_paths
+
+    h = hashlib.sha256()
+    for path, leaf in tree_paths(tree).items():
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
+        arr = leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+        h.update(path.encode())
+        h.update(str(arr.dtype).encode() + str(arr.shape).encode())
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
+def elastic_train_loop(config):
+    """The per-worker loop of the elastic phases: GPT-2 small
+    (``config["dtype"]`` compute, f32 by default) data-parallel over
+    ``session.get_mesh()``, the global batch's rows split over the world of
+    the moment. Each step it stashes this rank's ``shard_for_rank`` of the
+    params and Adam moments with the rules, puts the step's loss, time and
+    the whole state's digest and the time it finished in the KV store (under
+    ``world/step/rank``), and reports. A session started from a checkpoint
+    (a resized gang) takes the gathered state (``resume_state``), puts it on the card with
+    ``device_put_tree``, and records its digest. Returns the session's
+    losses, launches, peak memory and its last step's collective time (that
+    step runs under the profiler)."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import (GPTConfig, TrainState, create_train_state,
+                                      default_optimizer, make_train_step, shard_batch)
+    from ray_tpu_torch.models.training import (mesh_device, param_shardings, tree_leaves,
+                                               tree_map)
+    from ray_tpu_torch.ops import launch_counts, reset_launch_counts
+    from ray_tpu_torch.train.torch import resharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = session.get_mesh()
+    device = mesh_device(mesh)
+    rank, world = session.get_world_rank(), session.get_world_size()
+    dtype = getattr(torch, config.get("dtype", "float32"))
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(dtype=dtype), **config.get("cut", {}))
+    opt = default_optimizer(learning_rate=3e-4)
+    batch = shard_batch(mesh_batch(cfg, config["global_batch"], config["seq"]), mesh)
+    rules = [tuple(r) for r in config["rules"]]
+    kv = lambda key, value: global_worker.context.kv(  # noqa: E731
+        "put", f"{config['kv_key']}/{key}".encode(), json.dumps(value).encode())
+    reset_peak_memory(device)
+    ck = session.get_checkpoint()
+    resumed = None
+    if ck is None:
+        state = create_train_state(cfg, 0, opt, mesh=mesh)
+    else:
+        step, tree, _ = resharding.resume_state(ck.to_dict())
+        t0 = time.perf_counter()
+        # Replicated over the new mesh, as the model's data-parallel state is
+        # (the stash's rules cut it for the old world, unevenly at 4 -> 3).
+        placed = resharding.device_put_tree(tree, [(".*", ())], mesh)
+        device_sync(device)
+        resumed = {"step": step, "digest": state_digest(placed), "world": world,
+                   "device_put_s": time.perf_counter() - t0,
+                   "leaf_device": str(placed["params"]["wte"].to_local().device)}
+        kv(f"resumed/{rank}", resumed)
+        # The model's placements, in its own leaf order.
+        placements = param_shardings(cfg, mesh)
+
+        def model_tree(t, pl=placements):
+            if isinstance(t, dict):
+                return {k: model_tree(t[k], pl[k]) for k in pl}
+            return t.redistribute(mesh, pl)
+
+        params = model_tree(placed["params"])
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_(True)
+        state = TrainState(params=params, step=step, opt_state={
+            "count": int(tree["count"]), "mu": model_tree(placed["mu"]),
+            "nu": model_tree(placed["nu"])})
+        del placed, tree
+    steps, first = config["steps"], state.step
+    step_fn = make_train_step(cfg, opt, mesh=mesh)
+    losses, per_step, stash_s, collective = [], [], [], None
+    reset_launch_counts()
+    for s_ in range(first, steps):
+        before = launch_counts()
+        profiled = s_ + 1 == steps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled \
+                else contextlib.nullcontext() as prof:
+            device_sync(device)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(m["loss"].item())
+            device_sync(device)
+            step_ms = (time.perf_counter() - t0) * 1e3
+        if profiled:
+            collective = collective_ms_per_step(prof, 1)
+        after = launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        t0 = time.perf_counter()
+        whole = {"params": tree_map(lambda t: t.to_local().detach(), state.params),
+                 "mu": tree_map(lambda t: t.to_local(), state.opt_state["mu"]),
+                 "nu": tree_map(lambda t: t.to_local(), state.opt_state["nu"]),
+                 "count": state.opt_state["count"]}
+        session.stash_checkpoint(resharding.shard_for_rank(whole, rules, world, rank),
+                                 rules=rules, step=s_ + 1)
+        t1 = time.perf_counter()
+        kv(f"digest/{world}/{s_ + 1}/{rank}", state_digest(whole))
+        # t_done on the host's monotonic clock, which every rank on one host
+        # shares: the gang's wall time a step, stash and digest included.
+        kv(f"step/{world}/{s_ + 1}/{rank}", {"loss": losses[-1], "step_ms": step_ms,
+                                             "stash_s": t1 - t0,
+                                             "digest_s": time.perf_counter() - t1,
+                                             "t_done": time.monotonic()})
+        stash_s.append(time.perf_counter() - t0)
+        if s_ + 1 < steps:
+            session.report({"step": s_ + 1, "loss": losses[-1], "world": world})
+    return {"rank": rank, "world": world, "pid": os.getpid(), "device": str(device),
+            "first_step": first, "losses": losses, "launches_per_step": per_step,
+            "launches": launch_counts(), "stash_and_digest_s": stash_s, "resumed": resumed,
+            "backend": dist.get_backend(), "mesh_shape": list(mesh.mesh.shape),
+            "peak_memory_gib": peak_memory_gib(device),
+            "collective_ms_last_step": collective}
+
+
+def elastic_records(kv, name, kind):
+    """The KV records ``kind`` ("digest" or "step") of an elastic run:
+    {(world, step): {rank: value}}."""
+    out = {}
+    for key, value in kv.items():
+        parts = key[len(name) + 1:].split("/")
+        if parts[0] == kind:
+            world, step, rank = map(int, parts[1:])
+            out.setdefault((world, step), {})[rank] = value
+    return out
+
+
+def check_resume(kv, name, resumed_rank=0):
+    """The problems of an elastic run's resume, [] if none: at every step
+    that all ranks of a world recorded, their states' digests agree (a step
+    the lost rank never finished is not a state the gang held), and the
+    resumed state's digest equals what the ranks held at the resume step."""
+    problems = []
+    digests = elastic_records(kv, name, "digest")
+    complete = {ws: by_rank for ws, by_rank in digests.items()
+                if set(by_rank) == set(range(ws[0]))}
+    for (world, step), by_rank in sorted(complete.items()):
+        if len(set(by_rank.values())) != 1:
+            problems.append(f"world {world} step {step}: the ranks' states differ {by_rank}")
+    resumed = kv.get(f"{name}/resumed/{resumed_rank}")
+    if resumed is None:
+        return problems + ["no resume was recorded"]
+    held = {d for (world, step), by_rank in complete.items() if step == resumed["step"]
+            for d in by_rank.values()}
+    if not held:
+        problems.append(f"no digest at the resume step {resumed['step']}")
+    elif held != {resumed["digest"]}:
+        problems.append(f"the resumed state at step {resumed['step']} differs from what the "
+                        f"ranks held: {resumed['digest']} vs {held}")
+    return problems
+
+
+def phase_elastic_reshard(smi, device=None):
+    """GPT-2 small (f32) under ``ScalingConfig(num_workers=2, elastic=True)``
+    (two 0.5-GPU ranks over gloo), stashing sharded state each step, with
+    rank 1 killed after round ``ELASTIC_KILL_ROUND``: the gang re-forms at
+    world 1 from the in-memory mirrors and finishes. The resumed state
+    against what both ranks held (digests), the final loss against an
+    uninterrupted one-rank run here. Returns the resumed rank's launches.
+    ``device="cpu"``: a rehearsal (nano GPT, S 32)."""
+    import torch
+
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.models import GPTConfig, create_train_state, default_optimizer
+    from ray_tpu_torch.models import shard_batch
+    from ray_tpu_torch.util.preemption import (PreemptionEvent, PreemptionSchedule,
+                                               PreemptionSimulator)
+
+    on_cpu = device == "cpu"
+    cut = dict(n_layer=2, n_head=2, d_model=64, vocab_size=256, max_seq_len=128) if on_cpu else {}
+    seq = 32 if on_cpu else S
+    name = "chip_smoke_elastic_reshard"
+    config = {"cut": cut, "global_batch": ELASTIC_B, "seq": seq, "steps": ELASTIC_STEPS,
+              "rules": ELASTIC_RULES, "device": device}
+    sim = PreemptionSimulator(PreemptionSchedule(
+        [PreemptionEvent(at_round=ELASTIC_KILL_ROUND, rank=1, mode="kill")]))
+    scaling = ScalingConfig(num_workers=2, use_gpu=not on_cpu, elastic=True,
+                            **({} if on_cpu else {"gpus_per_worker": 0.5}))
+    out = run_mesh_gang(scaling, "gloo", config, name, loop=elastic_train_loop,
+                        elastic=ElasticRun(sim))
+    r0 = out["ranks"][0]
+    # The uninterrupted run: the same model, weights and rows on one device.
+    cfg = dataclasses.replace(GPTConfig.gpt2_small(dtype=torch.float32), **cut)
+    opt = default_optimizer(learning_rate=3e-4)
+    state = create_train_state(cfg, 0, opt, device=device)
+    batch = shard_batch(mesh_batch(cfg, ELASTIC_B, seq), device=device)
+    _, _, one = run_steps(cfg, opt, state, batch, warmup=0, timed=ELASTIC_STEPS,
+                          items=ELASTIC_B * seq)
+    del state, batch
+    if not on_cpu:
+        torch.cuda.empty_cache()
+    problems = check_resume(out["kv"], name)
+    final, ref = r0["losses"][-1], one["losses"][-1]
+    line = {"phase": "elastic_reshard", "entry": "TorchTrainer.fit",
+            "scaling": {"num_workers": 2, "elastic": True, "gpus_per_worker": 0.5},
+            "backend": "gloo", "model": "gpt2_small", "dtype": "float32",
+            "global_batch": ELASTIC_B, "seq": seq, "steps": ELASTIC_STEPS,
+            "rules": ELASTIC_RULES, "fired": sim.fired, "resize_events": out["resize_events"],
+            "resumed": r0["resumed"], "resumed_rank_losses": r0["losses"],
+            "resumed_world": r0["world"], "one_rank_losses": one["losses"],
+            "final_loss": final, "one_rank_final_loss": ref,
+            "final_loss_rel_err": abs(final - ref) / abs(ref), "tol_rel": ELASTIC_LOSS_RTOL,
+            "resume_problems": problems, "launches_per_step": r0["launches_per_step"],
+            "stash_and_digest_s": r0["stash_and_digest_s"], "fit_s": out["fit_s"],
+            "leftover_session_dirs": out["leftover_session_dirs"],
+            "leftover_worker_pids": out["leftover_worker_pids"], "card": smi}
+    emit(line)
+    require([f["mode"] for f in sim.fired] == ["kill"], f"elastic_reshard: fired {sim.fired}")
+    events = out["resize_events"]
+    require(len(events) == 1 and (events[0]["old_world"], events[0]["new_world"]) == (2, 1)
+            and events[0]["ckpt_source"] == "memory",
+            f"elastic_reshard: resize events {events}")
+    require(r0["world"] == 1 and r0["resumed"] is not None,
+            f"elastic_reshard: ended at world {r0['world']}, resumed {r0['resumed']}")
+    require(not problems, f"elastic_reshard: {problems}")
+    require(line["final_loss_rel_err"] <= ELASTIC_LOSS_RTOL,
+            f"elastic_reshard: final loss {final} vs the one-rank run's {ref}")
+    if not on_cpu:
+        require(r0["resumed"]["leaf_device"].startswith("cuda"),
+                f"elastic_reshard: the resumed state is on {r0['resumed']['leaf_device']}")
+        check_launches("elastic_reshard (resumed rank)", r0, cfg.n_layer)
+    require(not out["leftover_session_dirs"] and not out["leftover_worker_pids"],
+            f"elastic_reshard: left after shutdown: {out['leftover_session_dirs']}, "
+            f"{out['leftover_worker_pids']}")
+    return r0["launches"]
+
+
+def rl_mesh_learner_loop(config):
+    """The per-worker loop of the rl_mesh_learner phase: a TorchLearner on
+    ``session.get_mesh()`` (``{"data": 2}``) from ``rl_learner_inputs``'
+    weights, through its minibatches, of each of ``RL_MESH_KINDS``; each
+    update's aux and the final weights' leaves, as lists."""
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models.training import tree_leaves
+    from ray_tpu_torch.rllib import TorchLearner
+
+    mesh, out = session.get_mesh(), {}
+    for kind in RL_MESH_KINDS:
+        module, loss, opt, weights, extra, batches = rl_learner_inputs(kind)
+        learner = TorchLearner(module, loss, optimizer=opt, mesh=mesh)
+        learner.set_weights(weights)
+        learner.set_extra(extra)
+        aux = [learner.update(b) for b in batches]
+        out[kind] = {"aux": [{k: np.asarray(v).tolist() for k, v in a.items()} for a in aux],
+                     "weights": [np.asarray(w).tolist() for w in tree_leaves(learner.get_weights())],
+                     "placement": learner.placement()}
+    return {"rank": session.get_world_rank(), "pid": os.getpid(), **out}
+
+
+def phase_rl_mesh_learner(smi, device="cuda"):
+    """Two TorchLearners on ``{"data": 2}`` (two 0.5-GPU ranks over gloo,
+    each taking half of every minibatch's rows) through rl_learner_check's
+    PPO and DQN minibatches (and DQN's with importance weights), against one
+    TorchLearner on ``device`` on the whole minibatches."""
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.models.training import tree_leaves
+    from ray_tpu_torch.rllib import TorchLearner
+
+    on_cpu = device == "cpu"
+    scaling = ScalingConfig(num_workers=2, use_gpu=not on_cpu, mesh={"data": 2},
+                            **({} if on_cpu else {"gpus_per_worker": 0.5}))
+    out = run_mesh_gang(scaling, "gloo", {"device": device}, "chip_smoke_rl_mesh_learner",
+                        loop=rl_mesh_learner_loop)
+    ranks = out["ranks"]
+    lines = []
+    for kind in RL_MESH_KINDS:
+        module, loss, opt, weights, extra, batches = rl_learner_inputs(kind)
+        one = TorchLearner(module, loss, optimizer=opt, device=device)
+        one.set_weights(weights)
+        one.set_extra(extra)
+        ref = [one.update(b) for b in batches]
+        got = ranks[0][kind]["aux"]
+        errs = [{k: rl_rel_err(g[k], r[k]) for k in r} for g, r in zip(got, ref)]
+        worst = {k: max(e[k] for e in errs) for k in errs[0]}
+        param_err = max(float(np.max(np.abs(np.asarray(a) - b))) for a, b in
+                        zip(ranks[0][kind]["weights"], tree_leaves(one.get_weights())))
+        same = all(r[kind]["weights"] == ranks[0][kind]["weights"] for r in ranks)
+        line = {"phase": "rl_mesh_learner", "loss": kind, "mesh": {"data": 2}, "backend": "gloo",
+                "placements": [r[kind]["placement"] for r in ranks], "updates": len(batches),
+                "rows": len(batches[0]["obs"]), "rows_per_rank": len(batches[0]["obs"]) // 2,
+                "max_rel_err_per_key": worst, "param_max_abs_err": param_err,
+                "ranks_hold_equal_weights": same, "tol_rel": RL_TOL,
+                "tol_param_abs": RL_PARAM_TOL, "fit_s": out["fit_s"],
+                "leftover_session_dirs": out["leftover_session_dirs"],
+                "leftover_worker_pids": out["leftover_worker_pids"], "card": smi}
+        emit(line)
+        lines.append(line)
+        require(len(errs) == RL_UPDATES and max(worst.values()) <= RL_TOL,
+                f"rl_mesh_learner {kind}: {worst}")
+        require(param_err <= RL_PARAM_TOL and same, f"rl_mesh_learner {kind}: params {param_err}, "
+                f"equal on the ranks: {same}")
+        require(all(p["device"].startswith(device) for p in line["placements"]),
+                f"rl_mesh_learner {kind}: placements {line['placements']}")
+    require(not out["leftover_session_dirs"] and not out["leftover_worker_pids"],
+            f"rl_mesh_learner: left after shutdown: {out['leftover_session_dirs']}, "
+            f"{out['leftover_worker_pids']}")
+    return lines
 
 
 def ring_slices(x, n):
@@ -1083,7 +1602,7 @@ def phase_ring_check(smi, device=None):
             ok = ok and line["lse_max_abs_err_vs_full"] <= RING_LSE_TOL
         del plain, plain_o, plain_g, leaves
         if not on_cpu:
-            from ray_tpu_torch.ops.flash_attention import _bwd_cuda
+            from ray_tpu_torch.ops.flash_attention import _bwd_cuda, _bwd_plain, _fwd_plain
 
             deltas = [_delta(o, d_) for o, d_ in zip(os_, dos)]
             pairs = [(my, (my - step) % n) for step in range(n) for my in ranks
@@ -1098,13 +1617,37 @@ def phase_ring_check(smi, device=None):
                     _bwd_cuda(qs[my], ks[src], vs[src], dos[my], lses[my], deltas[my],
                               src == my, scale)
 
+            def blocks_fwd_plain():
+                for my, src in pairs:
+                    _fwd_plain(qs[my], ks[src], vs[src], src == my, scale)
+
+            def blocks_bwd_plain():
+                for my, src in pairs:
+                    _bwd_plain(qs[my], ks[src], vs[src], os_[my], lses[my], dos[my], src == my,
+                               scale)
+
             delta_full = _delta(o_full, do)
+            # One SDPA call on the whole sequence: the library's time for the
+            # work the ring's blocks share out.
+            q4, k4, v4 = (x[None].detach().requires_grad_() for x in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            o4 = sdpa(q4, k4, v4, is_causal=True)
+
+            def sdpa_fwd():
+                with torch.no_grad():
+                    sdpa(q4, k4, v4, is_causal=True)
+
             line["ms"] = {
+                "sdpa_full_fwd": cuda_ms(sdpa_fwd, calls=5, reps=5),
+                "sdpa_full_bwd": cuda_ms(lambda: torch.autograd.grad(
+                    o4, (q4, k4, v4), do[None], retain_graph=True), calls=5, reps=5),
                 "blocks_fwd": cuda_ms(blocks_fwd, calls=5, reps=5),
                 "full_call_fwd": cuda_ms(lambda: _fwd(q, k, v, True, scale), calls=5, reps=5),
                 "ring_fwd": cuda_ms(lambda: ring_forward(qs, ks, vs, ranks, n, True, scale,
                                                          VirtualRing()), calls=5, reps=5),
                 "blocks_bwd": cuda_ms(blocks_bwd, calls=5, reps=5),
+                "blocks_fwd_plain": cuda_ms(blocks_fwd_plain, calls=1, reps=3),
+                "blocks_bwd_plain": cuda_ms(blocks_bwd_plain, calls=1, reps=3),
                 "full_call_bwd": cuda_ms(lambda: _bwd_cuda(q, k, v, do, lse_full, delta_full,
                                                            True, scale), calls=5, reps=5),
                 "ring_bwd": cuda_ms(lambda: ring_backward(qs, ks, vs, os_, lses, dos, ranks, n,
@@ -1112,7 +1655,10 @@ def phase_ring_check(smi, device=None):
                                     calls=5, reps=5)}
             line["timing"] = ("device ms per call: events around 5 back-to-back calls, median "
                               "of 5; blocks_* the block kernels alone (all ranks' blocks), "
-                              "ring_* with the merge and the f32 sums")
+                              "ring_* with the merge and the f32 sums, blocks_*_plain the "
+                              "blocks' plain versions (1 call, median of 3), sdpa_full_* one "
+                              "scaled_dot_product_attention call on the whole sequence")
+            del q4, k4, v4, o4
             line["card"] = smi
         line["ok"] = ok
         emit(line)
@@ -1211,6 +1757,19 @@ def run_pipe_ctx_phases(smi):
     torch.cuda.empty_cache()
     phase_ring_check(smi)
     return phase_pipe_ctx_gang(smi, run["losses"][0], run["grad_norms"][0])
+
+
+def run_mesh_rest_phases(smi):
+    """``moe`` (for its first loss and grad norm), ``expert_tp_gang``,
+    ``elastic_reshard`` and ``rl_mesh_learner`` alone
+    (``tools/port_chip_phases.py mesh_rest``)."""
+    from ray_tpu_torch.ops import _build
+
+    _build.build()
+    _, moe_loss, moe_gnorm = phase_moe(smi)
+    phase_expert_tp_gang(smi, moe_loss, moe_gnorm)
+    phase_elastic_reshard(smi)
+    phase_rl_mesh_learner(smi)
 
 
 def check_launches(path, run, per_step):
@@ -1330,7 +1889,9 @@ def rl_learner_inputs(kind, seed=0):
     """One loss's module, loss function, optimizer, weights, extra state and
     RL_UPDATES minibatches, from numpy seed ``seed``, at the shapes PPO and DQN
     train CartPole with (obs 4, 2 actions; PPO's minibatch 128 rows, DQN's
-    train batch 64). ``kind``: "ppo", "dqn" (double Q) or "c51" (51 atoms)."""
+    train batch 64). ``kind``: "ppo", "dqn" (double Q), "dqn_weighted" (its
+    loss weights as prioritized replay's importance weights, in [0.2, 1],
+    and 0 on every eighth row, a truncation) or "c51" (51 atoms)."""
     from ray_tpu_torch.models import params_to_numpy
     from ray_tpu_torch.rllib.algorithms.dqn import make_c51_loss, make_dqn_loss
     from ray_tpu_torch.rllib.algorithms.ppo import make_ppo_loss
@@ -1369,6 +1930,9 @@ def rl_learner_inputs(kind, seed=0):
                      next_obs=rng.standard_normal((rows, obs_dim)).astype(np.float32),
                      terminateds=(rng.random(rows) < 0.05).astype(np.float32),
                      loss_weight=np.ones(rows, np.float32))
+            if kind == "dqn_weighted":
+                b["loss_weight"] = rng.uniform(0.2, 1.0, rows).astype(np.float32)
+                b["loss_weight"][::8] = 0.0
         return b
 
     return module, loss, adam(cfg.lr, cfg.grad_clip), weights, extra, [batch() for _ in range(RL_UPDATES)]
@@ -1590,6 +2154,7 @@ def run_rl_phases(smi):
 
     before, start = launch_counts(), time.perf_counter()
     phase_rl_learner_check(smi)
+    phase_rl_mesh_learner(smi)
     t0 = time.perf_counter()
     ray_tpu_torch.init(num_cpus=4)
     init_s = time.perf_counter() - t0
@@ -1954,10 +2519,15 @@ def main():
     torch.cuda.empty_cache()
 
     # ------------------------------------------------------------------ 8. the model zoo
-    zoo_launches = {"llama": phase_llama(smi), "moe": phase_moe(smi)}
+    zoo_launches = {"llama": phase_llama(smi)}
+    zoo_launches["moe"], moe_loss, moe_gnorm = phase_moe(smi)
     phase_resnet50(smi)
     zoo_launches["remat_dots"] = phase_remat_dots(smi, losses[0], gnorms[0],
                                                   run["peak_memory_gib"])
+
+    # ------------------------------------------------------------------ 8b. the rest of the mesh
+    zoo_launches["expert_gang"] = phase_expert_tp_gang(smi, moe_loss, moe_gnorm)
+    zoo_launches["elastic_reshard"] = phase_elastic_reshard(smi)
 
     # ------------------------------------------------------------------ 9. RLlib
     run_rl_phases(smi)
@@ -1979,7 +2549,9 @@ def main():
     def as_ring_blocks(which):
         return {"ring": ring["ring"], "blocks": ring["blocks"], "ms": ring["ms"][f"blocks_{which}"],
                 "full_call_ms": ring["ms"][f"full_call_{which}"],
-                "ring_ms": ring["ms"][f"ring_{which}"]}
+                "ring_ms": ring["ms"][f"ring_{which}"],
+                "plain_ms": ring["ms"][f"blocks_{which}_plain"],
+                "library_ms": ring["ms"][f"sdpa_full_{which}"]}
 
     kernels = {"kernels": [
         {"name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2001,8 +2573,7 @@ def main():
          "llama_shape": at_llama_shape("bwd", llama_err[1]),
          "ring_blocks_llama_shape": as_ring_blocks("bwd")},
     ]}
-    problems = check_kernels_line(kernels, ["main_path", "trainer", "mesh_gang", *gang_launches,
-                                            *zoo_launches])
+    problems = check_kernels_line(kernels, KERNEL_PATHS)
     require(not problems, f"kernels line: {problems}")
     emit(kernels)
     print(smi, flush=True)

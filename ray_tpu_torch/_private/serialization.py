@@ -52,12 +52,32 @@ def note_contained_ref(id_bytes: bytes) -> None:
         collector.append(id_bytes)
 
 
+def _tensor_from_numpy(array, dtype_name, requires_grad):
+    """A CPU tensor of ``array``'s bytes (``dtype_name``: the torch dtype to
+    view them as, for one numpy lacks), writable and owning its memory."""
+    import torch
+
+    t = torch.from_numpy(array if array.flags.writeable else array.copy())
+    if dtype_name is not None:
+        t = t.view(getattr(torch, dtype_name))
+    return t.requires_grad_() if requires_grad else t
+
+
+# Torch dtypes numpy has no type for, pickled as the same bytes of another.
+_NUMPY_VIEW_DTYPES = {"bfloat16": "int16", "float8_e4m3fn": "int8", "float8_e5m2": "int8"}
+
+
 class _Pickler(cloudpickle.CloudPickler):
-    """Cloudpickler that lowers device tensors to CPU tensors.
+    """Cloudpickler that lowers device tensors to CPU tensors and sends a
+    plain tensor's data out of band.
 
     A CUDA tensor's memory must stay on the device that owns it; only the host
     copy crosses process boundaries. Tasks that want device tensors move them
-    onto their own device.
+    onto their own device. A plain tensor (``torch.Tensor`` itself, strided)
+    pickles as a numpy array of its bytes, whose buffer protocol 5 carries
+    out of band into the object store, as a numpy array's does: torch's own
+    pickling puts the data in band, so a large tensor would ride the control
+    plane's frame (two tensors sharing storage arrive as two copies).
     """
 
     def reducer_override(self, obj):
@@ -66,6 +86,15 @@ class _Pickler(cloudpickle.CloudPickler):
         if mod.startswith("torch"):
             import torch
 
+            if type(obj) is torch.Tensor and obj.layout == torch.strided:
+                t = obj.detach().cpu().contiguous()
+                name = str(t.dtype).split(".")[-1]
+                view = _NUMPY_VIEW_DTYPES.get(name)
+                try:
+                    array = (t.view(getattr(torch, view)) if view else t).numpy()
+                except TypeError:  # no numpy counterpart (complex32, quantized, ...)
+                    return t.__reduce_ex__(5)
+                return _tensor_from_numpy, (array, name if view else None, obj.requires_grad)
             if isinstance(obj, torch.Tensor) and obj.device.type != "cpu":
                 return obj.detach().cpu().__reduce_ex__(5)
         # Delegate to CloudPickler: its reducer_override implements by-value

@@ -5,8 +5,9 @@ between dict / directory / bytes / URI forms so trainers, tuners, and serving
 can pass checkpoints around without caring how they were produced.
 
 GPU behavior: torch tensors inside dict checkpoints (in nested dicts, lists
-and tuples) are lowered to CPU tensors on save, so a checkpoint never pins
-device memory and is picklable across processes. Saving a sharded tree
+and tuples) are copied to CPU tensors on save, so a checkpoint never pins
+device memory, is picklable across processes, and keeps its values when the
+caller updates the originals in place. Saving a sharded tree
 (`save_pytree`) is not ported yet (ROADMAP.md Queue 1 item 6).
 """
 
@@ -26,8 +27,10 @@ _DICT_FILE = "ckpt.pkl"
 
 
 def _tree_to_host(obj: Any) -> Any:
-    """Lower the torch tensors in a nested dict / list / tuple to CPU tensors
-    (detached); everything else is returned as it is."""
+    """Copy the torch tensors in a nested dict / list / tuple to CPU tensors
+    (detached, and copied even where they are on the CPU, so a later in-place
+    update of the original leaves the result as it was); everything else is
+    returned as it is."""
     if isinstance(obj, dict):
         return type(obj)((k, _tree_to_host(v)) for k, v in obj.items())
     if isinstance(obj, (list, tuple)) and not hasattr(obj, "_fields"):
@@ -36,7 +39,7 @@ def _tree_to_host(obj: Any) -> Any:
         import torch
 
         if isinstance(obj, torch.Tensor):
-            return obj.detach().cpu()
+            return obj.detach().to("cpu", copy=True)
     return obj
 
 
@@ -169,9 +172,12 @@ class Checkpoint:
 
     def __reduce__(self):
         # Pickling a directory checkpoint inlines its bytes so it can cross
-        # process boundaries (the object store ships it to the driver).
+        # process boundaries (the object store ships it to the driver). A
+        # dict checkpoint pickles its dict in the same stream, so its
+        # tensors' data goes out of band (a resized gang's gathered state is
+        # GBs; as one in-band blob it would ride the control plane's frame).
         if self._data_dict is not None:
-            return (Checkpoint.from_bytes, (pickle.dumps(self._data_dict),))
+            return (Checkpoint, (None, self._data_dict))
         if self._uri is not None:
             return (Checkpoint.from_uri, (self._uri,))
         return (Checkpoint.from_bytes, (self.to_bytes(),))

@@ -5,8 +5,8 @@ Reference: `python/ray/air/config.py` (`ScalingConfig`, `RunConfig`,
 
 GPU delta: `use_gpu` puts `GPU` in each worker's resources, as in the
 reference. `num_workers` is the number of *processes*, one device each; a
-`mesh` lays them out over the data, fsdp and tensor axes (a torch
-`DeviceMesh`, `session.get_mesh()`).
+`mesh` lays them out over the six mesh axes (a torch `DeviceMesh`,
+`session.get_mesh()`).
 """
 
 from __future__ import annotations
@@ -43,9 +43,7 @@ class ScalingConfig:
 
     def __post_init__(self):
         if self.mesh is not None:
-            from ray_tpu_torch.parallel.mesh import check_mesh
-
-            check_mesh(self.mesh_spec())
+            self.mesh_spec()  # a dict naming an axis MeshSpec lacks raises here
         if self.num_workers < 1:
             raise ValueError("num_workers must be >= 1")
         if self.gpus_per_worker is not None and "GPU" in (self.resources_per_worker or {}):

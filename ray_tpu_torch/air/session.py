@@ -55,10 +55,11 @@ def mark_phase(phase: str) -> None:
 def stash_checkpoint(state: Any, *, rules=None, step: Optional[int] = None) -> None:
     """In-memory checkpoint for elastic recovery: snapshot this rank's state
     (torch tensors lowered to CPU tensors) into the worker's stash and mirror
-    it to a peer worker, so a node loss never loses the newest step. `state`
-    is replicated across the gang; sharding `rules` (the JAX package's
-    resharding) are not ported yet (ROADMAP.md Queue 1 item 3).
-    `step` defaults to the number of `report` calls completed so far. No-op
+    it to a peer worker, so a node loss never loses the newest step. Without
+    `rules`, `state` is replicated across the gang; with them (``[(regex,
+    spec)]``, `train/torch/resharding.py`), it is this rank's
+    `shard_for_rank` cut, and a resize gathers the ranks' shards whole for
+    `resharding.resume_state`. `step` defaults to the number of `report` calls completed so far. No-op
     outside a Train worker session, so loops can stash unconditionally."""
     sess = _require_session()
     stasher = getattr(sess, "stash_checkpoint", None)

@@ -278,14 +278,10 @@ def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=
         if config.moe_experts:
             m = {k: _weight(layer["moe"], k, cdt if k != "router_w" else v.dtype, spmd)
                  for k, v in layer["moe"].items()}
-            if spmd is not None and m["fc_w"].shape[-1] < config.ff_dim:
-                raise NotImplementedError(
-                    "MoE experts split over the tensor axis are not ported yet: ROADMAP.md "
-                    "Queue 1 item 3 (MoE's expert axis)"
-                )
             h, aux = moe.moe_mlp(h, m["router_w"], m["fc_w"], m["fc_b"], m["proj_w"],
                                  m["proj_b"], capacity_factor=config.moe_capacity_factor,
-                                 batch_mean=_moe_batch_mean(spmd))
+                                 batch_mean=_moe_batch_mean(spmd), spmd=spmd,
+                                 tensor_split=m["fc_w"].shape[-1] < config.ff_dim)
         else:
             fc_w = _weight(layer, "fc_w", cdt, spmd)  # (D, F_local)
             sharded = fc_w.shape[-1] < config.ff_dim
@@ -308,12 +304,13 @@ def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=
 
 
 def _moe_batch_mean(spmd):
-    """The mean of the router's fractions over the rows a microbatch spans:
-    the batch shards' (all-reduced) off a pipeline; on a pipeline a
-    microbatch lies on one batch shard (``parallel/pipeline.py``)."""
-    if spmd is None or spmd.pp > 1:
+    """The mean of the router's fractions over the tokens a microbatch spans:
+    the batch shards' and context slices' (all-reduced) off a pipeline; on a
+    pipeline a microbatch lies on one batch shard (``parallel/pipeline.py``),
+    so over its context slices only."""
+    if spmd is None:
         return None
-    return spmd.batch_mean
+    return spmd.batch_mean if spmd.pp == 1 else spmd.context_mean
 
 
 def lm_head_loss(x, head, targets, vocab: int, spmd, num_microbatches=None):
@@ -371,11 +368,10 @@ def _hidden(params, tokens, config: GPTConfig, attention_fn, dropout_seed, spmd,
     if spmd is None:
         x = F.embedding(tokens, wte) + params["wpe"].to(cdt)[:S][None]
     else:
-        if config.moe_experts and spmd.cp > 1:
-            raise NotImplementedError(
-                "MoE over a context axis (routing a sequence split across ranks) is not "
-                "ported yet: ROADMAP.md Queue 1 item 3 (MoE's expert axis)"
-            )
+        if config.moe_experts % spmd.ep:
+            # ShardingRules would replicate the experts instead of splitting them.
+            raise ValueError(f"{config.moe_experts} experts do not split over an expert axis "
+                             f"of {spmd.ep}")
         dropout_seed = fold_batch_index(dropout_seed, spmd)
         if spmd.first_stage or spmd.last_stage:
             wte = spmd.gather(wte, "wte")

@@ -5,7 +5,9 @@ The JAX package's tree and layout: NHWC activations, HWIO conv kernels
 f32 outputs, f32 logits; ``params["stage<i>"]`` is a list of block dicts.
 Convolutions and the stem's max-pool pad as XLA's ``padding="SAME"`` does, which is asymmetric for
 a stride-2 window on an even input (the 7x7/2 stem on 224 pads 2 before and 3
-after), so each pads explicitly and then runs unpadded.
+after), so each pads explicitly and then runs unpadded. Over a tensor axis each
+rank computes its slice of every convolution's output channels
+(``parallel/spmd.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch._private.accelerators.gpu import resolve_device
 from ray_tpu_torch.models.gpt import _lm_head
+from ray_tpu_torch.ops.basic import causal_lm_loss
 from ray_tpu_torch.parallel.spmd import spmd_for
 
 
@@ -242,22 +245,64 @@ def _conv(x, w, stride=1, cdt=None):
     return y.permute(0, 2, 3, 1)
 
 
-def _block_fwd(x, b, config: ResNetConfig, stride: int):
+def _tp_group_norm(x, scale, bias, groups, spmd, eps=1e-5):
+    """GroupNorm of this rank's channel slice x (N, H, W, C / tp) of a
+    C-channel activation split over the tensor group; ``scale`` and ``bias``
+    whole (C,). Where the groups fall whole in each slice the statistics are
+    the slice's own; else each group's mean and then variance come from the
+    per-channel sums of every slice, gathered (the activations never are)."""
+    C = x.shape[-1] * spmd.tp
+    g = min(groups, C)
+    while C % g:
+        g -= 1
+    scale, bias = spmd.tp_slice(scale), spmd.tp_slice(bias)
+    if g % spmd.tp == 0:
+        return _group_norm(x, scale, bias, g // spmd.tp, eps)
+    xf = x.float()
+    n, per = x.shape[1] * x.shape[2] * (C // g), C // g
+
+    def group_mean(per_channel):  # (N, C/tp) sums -> each local channel's group mean
+        whole = spmd.gather_channels(per_channel).view(x.shape[0], g, per).sum(-1) / n
+        # A plain slice: this rank's part of the sums' gradient, which the
+        # gather's backward adds up across the group.
+        return whole.repeat_interleave(per, dim=-1).chunk(spmd.tp, -1)[spmd.tp_rank]
+
+    d = xf - group_mean(xf.sum((1, 2)))[:, None, None, :]
+    var = group_mean((d * d).sum((1, 2)))[:, None, None, :]
+    return d * torch.rsqrt(var + eps) * scale + bias
+
+
+def _norm(x, scale, bias, config: ResNetConfig, spmd):
+    """The config's GroupNorm of x, or of this rank's channel slice of it
+    over the tensor axis."""
+    if spmd is not None and spmd.tp > 1:
+        return _tp_group_norm(x, scale, bias, config.groupnorm_groups, spmd)
+    return _group_norm(x, scale, bias, config.groupnorm_groups)
+
+
+def _block_fwd(x, b, config: ResNetConfig, stride: int, spmd=None):
+    """One block. Over the tensor axis (``spmd.tp > 1``), x and the result
+    are this rank's channel slices: the input is gathered whole before each
+    convolution, and each convolution computes this rank's output channels."""
     cdt = config.dtype
-    g = config.groupnorm_groups
+    whole = spmd.gather_channels if spmd is not None and spmd.tp > 1 else (lambda t: t)
+
+    def norm(h, i):
+        return _norm(h, b[f"gn{i}_scale"], b[f"gn{i}_bias"], config, spmd)
 
     def gn_relu(h, i):  # relu after rounding to cdt: the same values, half the saved bytes
-        return F.relu(_group_norm(h, b[f"gn{i}_scale"], b[f"gn{i}_bias"], g).to(cdt))
+        return F.relu(norm(h, i).to(cdt))
 
+    x_in = whole(x)
     if config.bottleneck:
-        h = gn_relu(_conv(x, b["conv1"], 1, cdt), 1)
-        h = gn_relu(_conv(h, b["conv2"], stride, cdt), 2)
-        h = _group_norm(_conv(h, b["conv3"], 1, cdt), b["gn3_scale"], b["gn3_bias"], g)
+        h = gn_relu(_conv(x_in, b["conv1"], 1, cdt), 1)
+        h = gn_relu(_conv(whole(h), b["conv2"], stride, cdt), 2)
+        h = norm(_conv(whole(h), b["conv3"], 1, cdt), 3)
     else:
-        h = gn_relu(_conv(x, b["conv1"], stride, cdt), 1)
-        h = _group_norm(_conv(h, b["conv2"], 1, cdt), b["gn2_scale"], b["gn2_bias"], g)
+        h = gn_relu(_conv(x_in, b["conv1"], stride, cdt), 1)
+        h = norm(_conv(whole(h), b["conv2"], 1, cdt), 2)
     if "proj" in b:
-        residual = _conv(x, b["proj"], stride, cdt)
+        residual = _conv(x_in, b["proj"], stride, cdt)
     elif stride != 1:
         raise ValueError("a stride-2 block without a projection kernel")
     else:
@@ -267,33 +312,38 @@ def _block_fwd(x, b, config: ResNetConfig, stride: int):
 
 def _forward_local(params, images, config: ResNetConfig, spmd):
     """Logits (B, num_classes) f32 from this rank's shards (all of them off a
-    mesh)."""
+    mesh); over the tensor axis, this rank's slice of the classes where the
+    head splits them."""
     if spmd is not None:
-        if spmd.tp > 1:
-            raise NotImplementedError(
-                "ResNet with channels split over the tensor axis is not ported yet: "
-                "ROADMAP.md Queue 1 item 3"
-            )
         if spmd.pp > 1 or spmd.cp > 1:
             raise NotImplementedError(
                 "ResNet has no layer stack to pipeline and no sequence to split: it runs "
-                "on data, fsdp (and, later, tensor) meshes: ROADMAP.md Queue 1 item 3"
+                "on data, fsdp, tensor and expert meshes"
             )
         params, images = spmd.local(params), spmd.batch_local(images)
         params = {**params, "head": {**params["head"],
                                      "w": spmd.gather(params["head"]["w"], "head.w")}}
+    split = spmd is not None and spmd.tp > 1
     cdt = config.dtype
     stem = params["stem"]
     x = _conv(images, stem["conv"], 2, cdt)
-    x = F.relu(_group_norm(x, stem["gn_scale"], stem["gn_bias"], config.groupnorm_groups).to(cdt))
+    x = F.relu(_norm(x, stem["gn_scale"], stem["gn_bias"], config, spmd).to(cdt))
     # 3x3 max-pool, stride 2, "SAME" with -inf padding.
     x = _pad_same(x, 3, 2, value=-math.inf)
     x = F.max_pool2d(x.permute(0, 3, 1, 2), 3, 2).permute(0, 2, 3, 1)
     for si in range(len(config.stage_sizes)):
         for bi, b in enumerate(params[f"stage{si}"]):
-            x = _block_fwd(x, b, config, 2 if (si > 0 and bi == 0) else 1)
+            x = _block_fwd(x, b, config, 2 if (si > 0 and bi == 0) else 1, spmd)
     x = x.float().mean(dim=(1, 2))  # global average pool
-    return _lm_head(x.to(cdt), params["head"]["w"].to(cdt).t()) + params["head"]["b"].float()
+    w, bias = params["head"]["w"], params["head"]["b"].float()
+    if split:
+        classes_split = w.shape[1] < config.num_classes
+        # A head split over the classes makes a part of the features'
+        # gradient on each rank; a replicated one makes all of it.
+        x = spmd.gather_channels(x, sum_grad=classes_split)
+        if classes_split:
+            bias = spmd.tp_slice(bias)
+    return _lm_head(x.to(cdt), w.to(cdt).t()) + bias
 
 
 def forward(
@@ -304,14 +354,14 @@ def forward(
     dropout_seed=None,
     mesh=None,
 ):
-    """Class logits (B, num_classes) in float32. On a mesh (data and fsdp
-    parallelism: the head is gathered over fsdp; channels split over the
-    tensor axis are not ported), from this rank's shards, returned as a
-    DTensor with the batch over (data, fsdp)."""
+    """Class logits (B, num_classes) in float32. On a mesh, from this rank's
+    shards (the head gathered over fsdp; channels and classes split over the
+    tensor axis), returned as a DTensor with the batch over (data, fsdp) and
+    the classes over tensor where the head splits them."""
     del attention_fn, dropout_seed
     spmd = spmd_for(mesh)
     logits = _forward_local(params, images, config, spmd)
-    return logits if spmd is None else spmd.global_batch(logits)
+    return logits if spmd is None else spmd.global_batch(logits, config.num_classes)
 
 
 def loss_fn(
@@ -327,8 +377,7 @@ def loss_fn(
     del attention_fn, dropout_seed
     spmd = spmd_for(mesh)
     logits = _forward_local(params, batch["images"], config, spmd)
-    labels = batch["labels"] if spmd is None else spmd.batch_local(batch["labels"])
-    lse = torch.logsumexp(logits, dim=-1)
-    at = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    loss = (lse - at).mean()
-    return loss if spmd is None else spmd.batch_mean(loss)
+    if spmd is None:
+        return causal_lm_loss(logits, batch["labels"])
+    labels = spmd.batch_local(batch["labels"])
+    return spmd.batch_mean(spmd.token_ce(logits, labels, config.num_classes))

@@ -31,13 +31,7 @@ import torch
 from ray_tpu_torch._private.accelerators.gpu import resolve_device
 from ray_tpu_torch.models import gpt, llama, resnet
 from ray_tpu_torch.ops.basic import fold_seed
-from ray_tpu_torch.parallel.mesh import (
-    ShardingRules,
-    axis_sizes,
-    batch_sharding,
-    check_mesh,
-    distribute,
-)
+from ray_tpu_torch.parallel.mesh import ShardingRules, axis_sizes, batch_sharding, distribute
 from ray_tpu_torch.parallel.spmd import spmd_for
 
 _DROPOUT_BASE_SEED = 0x5EED
@@ -253,7 +247,6 @@ def create_train_state(config, seed, optimizer: AdamW, mesh=None, device=None,
     when there is none) and the optimizer state. With a ``mesh``, params and
     moments are DTensors placed by ``rules`` (default ``ShardingRules()``) on
     the mesh's device."""
-    check_mesh(mesh)
     if mesh is None:
         params = model_for(config).init_params(config, seed, resolve_device(device))
     else:
@@ -294,7 +287,6 @@ def make_train_step(
     """One update: loss -> grads -> optimizer, in place. The returned metrics
     are tensors on the device (``loss``, ``grad_norm``; the same on every rank
     of a mesh) and the new ``step``."""
-    check_mesh(mesh)
     model = model_for(config)
 
     def step_fn(state: TrainState, batch):
@@ -327,7 +319,6 @@ def shard_batch(batch: Dict[str, Any], mesh=None, device=None) -> Dict[str, torc
     if mesh is None:
         device = resolve_device(device)
         return {k: torch.as_tensor(np.asarray(x), device=device) for k, x in batch.items()}
-    check_mesh(mesh)
     sizes = axis_sizes(mesh)
     n = sizes["data"] * sizes["fsdp"]
     if sizes["context"] > 1 and "tokens" in batch:

@@ -34,6 +34,27 @@ package written out:
   norm) is used by one stage, and its gradient is ``Partial`` over
   ``pipeline``: zero on the stages that do not use it.
 
+- Expert: the batch is replicated over ``expert`` and each rank holds ``E /
+  expert`` of a Switch MoE's experts (``models/moe.py``). Each rank routes its
+  tokens over all experts (the router is replicated), runs its own experts'
+  products on the tokens they take, and the combine, a sum over experts, is
+  an f32 all-reduce across the expert group before rounding (``expert_sum``).
+  The MoE's input and gate come through ``copy_to_ep`` (identity forward,
+  all-reduce of the gradient), so the weights replicated over ``expert`` get
+  the same gradient on every expert rank (up to the bf16 attention
+  backward's rounding order, so their mean across the group is taken: the
+  replicas stay equal), and ``expert`` is not a batch axis: the loss mean
+  does not count it. An expert MLP over a tensor split is column-parallel
+  into its hidden dim and row-parallel out of it, as the dense MLP is; over
+  a context split, a token's slot in its expert's queue counts the tokens of
+  the ranks before it (``context_prefix``).
+- Channels (ResNet over ``tensor``): each rank computes its slice of a
+  convolution's output channels from all of its input channels, gathered
+  before the convolution (``gather_channels``, whose backward is a
+  reduce-scatter of the partial input gradients); a replicated per-channel
+  weight is sliced through ``tp_slice`` (backward: all-gather), so its
+  gradient stays whole on every rank.
+
 DTensor's own sharding propagation is not used for the forward: on nano
 GPT over ``{data 2, tensor 2}`` it raises while redistributing the
 vocab-sharded embedding's ``MaskPartial`` output (torch 2.11), and an eager
@@ -49,7 +70,7 @@ import torch
 import torch.distributed as dist
 
 from ray_tpu_torch.ops.basic import HeadF32, causal_lm_loss, fold_seed
-from ray_tpu_torch.parallel.mesh import AXIS_ORDER, axis_sizes, check_mesh
+from ray_tpu_torch.parallel.mesh import AXIS_ORDER, axis_sizes
 
 BATCH_AXES = ("data", "fsdp")
 # Axes whose ranks hold different tokens: a weight replicated over one of them
@@ -163,24 +184,63 @@ def all_to_all(x, split_dim: int, concat_dim: int, group):
     return _AllToAll.apply(x, split_dim, concat_dim, group)
 
 
-class _GatherFSDP(torch.autograd.Function):
-    """All-gather along ``dim`` over ``group``; backward: reduce-scatter."""
+def gather_rows(x, group, n):
+    """All-gather of ``x`` along dim 0 over ``group`` (gloo: CUDA tensors
+    through the host)."""
+    staged = _staged(group, x)
+    src = x.detach().contiguous().cpu() if staged else x.contiguous()
+    buf = src.new_empty((n * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(buf, src, group=group)
+    return buf.to(x.device) if staged else buf
+
+
+def _reduce_scatter(x, group, n):
+    """The sum over ``group`` of ``x`` along dim 0, this rank's ``1/n`` of it."""
+    staged = _staged(group, x)
+    src = x.detach().contiguous().cpu() if staged else x.contiguous()
+    out = src.new_empty((x.shape[0] // n, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.to(x.device) if staged else out
+
+
+def _all_gather(x, dim, group, n):
+    """The slices of ``group`` concatenated along ``dim`` in rank order."""
+    buf = gather_rows(x, group, n)
+    return buf if dim == 0 else torch.cat(buf.chunk(n), dim=dim)
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``group``. Backward: a reduce-scatter of
+    the gradient (``sum_grad``: each rank's consumers made a part of it), or
+    this rank's own slice of it (the consumers are replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, sum_grad):
+        ctx.dim, ctx.group, ctx.n, ctx.sum_grad = dim, group, n, sum_grad
+        return _all_gather(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.sum_grad:
+            return g.chunk(ctx.n, dim=ctx.dim)[dist.get_rank(ctx.group)].contiguous(), \
+                None, None, None, None
+        parts = torch.cat(g.chunk(ctx.n, dim=ctx.dim)) if ctx.dim else g.contiguous()
+        return _reduce_scatter(parts, ctx.group, ctx.n), None, None, None, None
+
+
+class _SliceOfGroup(torch.autograd.Function):
+    """This rank's slice along ``dim`` of a tensor whole on every rank of
+    ``group``. Backward: an all-gather of the slices' gradients, so the
+    whole tensor's gradient is the same on every rank."""
 
     @staticmethod
     def forward(ctx, x, dim, group, n):
         ctx.dim, ctx.group, ctx.n = dim, group, n
-        buf = x.new_empty((n * x.shape[0], *x.shape[1:]))
-        dist.all_gather_into_tensor(buf, x.contiguous(), group=group)
-        if dim == 0:
-            return buf
-        return torch.cat(buf.chunk(n), dim=dim)
+        return x.chunk(n, dim=dim)[dist.get_rank(group)].contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        parts = torch.cat(g.chunk(ctx.n, dim=ctx.dim)) if ctx.dim else g.contiguous()
-        out = parts.new_empty((parts.shape[0] // ctx.n, *parts.shape[1:]))
-        dist.reduce_scatter_tensor(out, parts, group=ctx.group)
-        return out, None, None, None
+        return _all_gather(g, ctx.dim, ctx.group, ctx.n), None, None, None
 
 
 class _CopyToGroup(torch.autograd.Function):
@@ -213,6 +273,19 @@ class _ReduceFromGroups(torch.autograd.Function):
         return (g, *(None for _ in ctx.needs_input_grad[1:]))
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """Identity; backward: the gradient times ``scale``."""
+
+    @staticmethod
+    def forward(ctx, x, scale):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
 class _VocabParallelCE(torch.autograd.Function):
     """Per-token cross entropy of logits (N, V_local) f32 whose vocab is split
     over ``group`` (this rank's ids start at ``start``), against global target
@@ -241,28 +314,34 @@ class _VocabParallelCE(torch.autograd.Function):
         return grad * g[:, None], None, None, None
 
 
+def _f32_product(a, w):
+    """``a @ w`` (2-D) in f32 from operands in the compute dtype."""
+    return a @ w if a.dtype == torch.float32 else HeadF32.apply(a, w.t())
+
+
 class SPMD:
     """One forward's view of its mesh: axis sizes, this rank's coordinates,
     the process groups, and which dim of each param is sharded on ``fsdp``."""
 
     def __init__(self, mesh):
-        check_mesh(mesh)
         self.mesh = mesh
         self.sizes = axis_sizes(mesh)
         self.tp = self.sizes["tensor"]
         self.fsdp = self.sizes["fsdp"]
         self.pp = self.sizes["pipeline"]
         self.cp = self.sizes["context"]
+        self.ep = self.sizes["expert"]
         self.tp_rank, self.tp_group = self._coord("tensor")
         self.pp_rank, self.pp_group = self._coord("pipeline")
         self.cp_rank, self.cp_group = self._coord("context")
+        self.ep_rank, self.ep_group = self._coord("expert")
         self.fsdp_group = self._coord("fsdp")[1]
         self.batch_groups = [mesh.get_group(a) for a in BATCH_AXES if self.sizes[a] > 1]
         self.batch_shards = self.sizes["data"] * self.fsdp
         self.batch_index = (mesh.get_local_rank("data") * self.fsdp
                             + (mesh.get_local_rank("fsdp") if self.fsdp > 1 else 0))
         # The loss is a mean over every token: over the batch shards and the
-        # context slices of each sequence.
+        # context slices of each sequence (expert ranks hold the same tokens).
         self.token_groups = self.batch_groups + ([self.cp_group] if self.cp > 1 else [])
         self.token_shards = self.batch_shards * self.cp
         self.fsdp_dims: Dict[str, Optional[int]] = {}
@@ -305,17 +384,24 @@ class SPMD:
         fsdp_mdim = AXIS_ORDER.index("fsdp")
         p = tree.placements[fsdp_mdim]
         self.fsdp_dims[name] = (p.dim - (1 if layered else 0)) if p.is_shard() else None
-        return tree.to_local(grad_placements=self.grad_placements(tree))
+        local = tree.to_local(grad_placements=self.grad_placements(tree))
+        if self.ep > 1 and tree.placements[AXIS_ORDER.index("expert")].is_replicate():
+            local = _ScaleGrad.apply(local, 1.0 / self.ep)
+        return local
 
     def grad_placements(self, param) -> List:
         """The placements of ``param``'s gradient as this rank computes it:
         ``Partial`` over each axis of ranks that hold other tokens (batch,
         context) or run another stage (pipeline) where ``param`` is
-        replicated, the param's own placement elsewhere."""
+        replicated, and over ``expert``, where each rank's gradient is
+        scaled by 1/expert (``local``): the expert ranks compute the same
+        gradient of a replicated weight, equal up to the bf16 attention
+        backward's rounding order, so the mean keeps the replicas equal;
+        the param's own placement elsewhere."""
         from torch.distributed.tensor import Partial
 
-        return [Partial() if (AXIS_ORDER[i] in TOKEN_AXES + ("pipeline",) and pl.is_replicate()
-                              and self.sizes[AXIS_ORDER[i]] > 1) else pl
+        return [Partial() if (AXIS_ORDER[i] in TOKEN_AXES + ("pipeline", "expert")
+                              and pl.is_replicate() and self.sizes[AXIS_ORDER[i]] > 1) else pl
                 for i, pl in enumerate(param.placements)]
 
     def batch_local(self, t):
@@ -329,18 +415,51 @@ class SPMD:
         dim = self.fsdp_dims.get(name)
         if dim is None or self.fsdp == 1:
             return w
-        return _GatherFSDP.apply(w, dim, self.fsdp_group, self.fsdp)
+        return _AllGather.apply(w, dim, self.fsdp_group, self.fsdp, True)
 
     def copy_to_tp(self, x, sharded: bool):
         return _CopyToGroup.apply(x, self.tp_group) if sharded else x
 
     def row_parallel(self, a, w, cdt):
         """``a @ w`` over a contraction split across the tensor group: f32
-        partial products, summed across the group, rounded to ``cdt``."""
-        lead = a.shape[:-1]
-        a2 = a.reshape(-1, a.shape[-1])
-        part = a2 @ w if a2.dtype == torch.float32 else HeadF32.apply(a2, w.t())
-        return _ReduceFromGroups.apply(part, self.tp_group).to(cdt).view(*lead, w.shape[-1])
+        partial products, summed across the group, rounded to ``cdt``. A 3-D
+        ``w`` (E, K, N) is one product per expert of ``a`` (E, ..., K)."""
+        if w.dim() == 3:
+            part = torch.stack([_f32_product(a[e].reshape(-1, a.shape[-1]), w[e])
+                                for e in range(w.shape[0])])
+        else:
+            part = _f32_product(a.reshape(-1, a.shape[-1]), w)
+        return _ReduceFromGroups.apply(part, self.tp_group).to(cdt).view(*a.shape[:-1],
+                                                                          w.shape[-1])
+
+    # ------------------------------------------------------------------ the expert axis
+    def copy_to_ep(self, x):
+        """Identity; backward: the sum of the expert ranks' gradients (each
+        rank's experts make a part of it)."""
+        return _CopyToGroup.apply(x, self.ep_group) if self.ep > 1 else x
+
+    def expert_sum(self, part, cdt):
+        """The sum across the expert group of each rank's f32 part of an
+        expert combine, rounded to ``cdt``; backward: the identity."""
+        return _ReduceFromGroups.apply(part, self.ep_group).to(cdt)
+
+    def context_prefix(self, counts):
+        """The sum of ``counts`` over the context ranks before this one
+        (an exclusive prefix across the context group; no gradient)."""
+        every = gather_rows(counts[None], self.cp_group, self.cp)
+        return every[:self.cp_rank].sum(0)
+
+    # ------------------------------------------------------------------ channels over tensor
+    def gather_channels(self, x, sum_grad: bool = True):
+        """``x``'s last dim whole over the tensor group (its slices in rank
+        order). Backward: reduce-scatter with ``sum_grad`` (the consumer is
+        split across the group), else this rank's slice (it is replicated)."""
+        return _AllGather.apply(x, x.dim() - 1, self.tp_group, self.tp, sum_grad)
+
+    def tp_slice(self, t):
+        """This rank's slice of the last dim of ``t`` (whole on every rank),
+        whose gradient comes back whole on every rank."""
+        return _SliceOfGroup.apply(t, t.dim() - 1, self.tp_group, self.tp)
 
     def embed(self, tokens, table, vocab: int):
         """Rows of ``table`` (V_local, d) for ``tokens``; over a vocab shard,
@@ -378,6 +497,11 @@ class SPMD:
         if self.token_shards == 1:
             return x
         return _ReduceFromGroups.apply(x / self.token_shards, *self.token_groups)
+
+    def context_mean(self, x):
+        """The mean over the context slices of a per-slice mean (backward:
+        the identity)."""
+        return x if self.cp == 1 else _ReduceFromGroups.apply(x / self.cp, self.cp_group)
 
     def stage_sum(self, x):
         """The sum over the pipeline group (the last stage's value where the
@@ -417,4 +541,5 @@ def fold_batch_index(seed: Optional[int], spmd: Optional[SPMD]) -> Optional[int]
     return fold_seed(seed, spmd.batch_index * spmd.cp + spmd.cp_rank)
 
 
-__all__ = ["P2P", "SPMD", "all_to_all", "fold_batch_index", "ppermute", "spmd_for"]
+__all__ = ["P2P", "SPMD", "all_to_all", "fold_batch_index", "gather_rows", "ppermute",
+           "spmd_for"]

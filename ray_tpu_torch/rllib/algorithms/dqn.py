@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.rllib.algorithms.algorithm import _MULTI_AGENT, Algorithm, AlgorithmConfig
-from ray_tpu_torch.rllib.core.learner import adam
+from ray_tpu_torch.rllib.core.learner import adam, batch_sum
 from ray_tpu_torch.rllib.utils.replay_buffers import (
     PrioritizedReplayBuffer,
     ReplayBuffer,
@@ -118,10 +118,10 @@ def make_dqn_loss(config: DQNConfig) -> Callable:
         weight = batch["loss_weight"]
         abs_td = torch.abs(td)
         huber = torch.where(abs_td < 1.0, 0.5 * td * td, abs_td - 0.5)
-        denom = torch.clamp(torch.sum(weight), min=1.0)
-        total = torch.sum(weight * huber) / denom
+        denom = torch.clamp(batch_sum(weight), min=1.0)
+        total = batch_sum(weight * huber) / denom
         aux = {
-            "td_error_mean": torch.sum(weight * abs_td) / denom,
+            "td_error_mean": batch_sum(weight * abs_td) / denom,
             "q_mean": torch.mean(q_sa),
             # Per-sample |TD| rides out of the SAME update: prioritized
             # replay refreshes priorities from it without a second forward.
@@ -175,7 +175,7 @@ def make_c51_loss(config: DQNConfig) -> Callable:
 
         ce = -torch.sum(m * logp_sa, dim=-1)  # (B,)
         weight = batch["loss_weight"]
-        total = torch.sum(weight * ce) / torch.clamp(torch.sum(weight), min=1.0)
+        total = batch_sum(weight * ce) / torch.clamp(batch_sum(weight), min=1.0)
         # Q(s,a) for metrics from the already-computed logits: E_z[softmax]
         # of the taken action's atom row.
         q_sa = torch.sum(torch.exp(logp_sa) * module.support_on(logp_sa), dim=-1)

@@ -276,9 +276,17 @@ class BackendExecutor:
             self._health_tick()
             pending = list(refs)
             while pending:
-                _, pending = ray_tpu_torch.wait(
+                ready, pending = ray_tpu_torch.wait(
                     pending, num_returns=len(pending), timeout=0.25
                 )
+                # A lost rank ends the round at once: a survivor blocked in a
+                # collective with it may never deliver its result (the drain
+                # aborts that collective).
+                for ref in ready:
+                    try:
+                        ray_tpu_torch.get(ref)
+                    except Exception as e:
+                        raise GangResizeNeeded(f"worker loss mid-round: {e}") from e
                 if pending:
                     self._health_tick()
         try:

@@ -137,10 +137,13 @@ def assemble_recovery(
 
     A candidate is a (step, world_size) group; it is complete when every rank
     0..world_size-1 contributed a shard. Returns (step, full state tree,
-    rules) for the completable group with the highest step, or None. Only
-    replicated state is assembled: resharding a sharded stash at a resize is
-    not ported yet.
+    rules) for the completable group with the highest step, or None. A
+    sharded stash (one with rules) is gathered whole
+    (``train/torch/resharding.py``), for the resumed ranks to cut again at
+    the new world size.
     """
+    from ray_tpu_torch.train.torch import resharding
+
     groups: Dict[Tuple[int, int], Dict[int, Dict[str, Any]]] = {}
     for p in payloads:
         if not isinstance(p, dict) or "state" not in p:
@@ -160,7 +163,6 @@ def assemble_recovery(
     if not rules:
         # No partition rules: state is replicated; any rank's copy is whole.
         return step, shards[0], []
-    raise NotImplementedError(
-        "resharding a sharded checkpoint at an elastic resize is not ported yet: "
-        "ROADMAP.md Queue 1 item 3"
-    )
+    # Rules arrive as [pattern, spec] lists after serialization.
+    norm = [(pat, tuple(spec)) for pat, spec in rules]
+    return step, resharding.gather_tree(shards, norm), norm

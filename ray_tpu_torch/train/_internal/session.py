@@ -200,17 +200,11 @@ class _TrainSession:
     def stash_checkpoint(self, state: Any, *, rules=None,
                          step: Optional[int] = None) -> None:
         """In-memory checkpoint stash + peer mirror (elastic recovery). The
-        state is snapshot with its torch tensors on the CPU; the mirror push
-        is fire-and-forget (see train/_internal/elastic.py). Sharding `rules`
-        are not ported yet."""
+        state (this rank's shard under ``rules``, or the whole replicated
+        state without them) is snapshot with its torch tensors on the CPU;
+        the mirror push is fire-and-forget (see train/_internal/elastic.py)."""
         from ray_tpu_torch.air.checkpoint import _tree_to_host
         from ray_tpu_torch.train._internal import elastic
-
-        if rules:
-            raise NotImplementedError(
-                "stash_checkpoint with sharding rules is not ported yet: "
-                "ROADMAP.md Queue 1 item 3"
-            )
 
         elastic.stash(
             rank=self.world_rank,
@@ -246,15 +240,28 @@ class _TrainSession:
         blocked report by consuming the queue. Returns True when the loop
         thread actually finished within the timeout (a False return means the
         rank is stuck mid-step — collective hang, very long step — and the
-        caller should treat it as dead)."""
+        caller should treat it as dead). Once the loop has stopped, or
+        halfway through the timeout (at most 5 s), this rank's process
+        groups are aborted: a rank blocked in a collective whose peer is gone
+        or already stopped never returns from it otherwise (NCCL waits on
+        the peer for good; gloo waits on a live peer that stopped), and an
+        aborted NCCL group fails its peers' pending collectives too (gloo's
+        abort does not: a gloo rank blocked on a live peer waits out the
+        group's timeout). The gang makes new groups after a drain."""
         self._stop.set()
-        deadline = time.monotonic() + timeout
-        while not self._finished.is_set() and time.monotonic() < deadline:
+        start = time.monotonic()
+        deadline, abort_at = start + timeout, start + min(timeout / 2, 5.0)
+        aborted = False
+        while True:
+            if not aborted and (self._finished.is_set() or time.monotonic() >= abort_at):
+                aborted = True
+                _abort_collectives()
+            if self._finished.is_set() or time.monotonic() >= deadline:
+                return self._finished.is_set()
             try:
                 self._q.get(timeout=0.05)
             except queue.Empty:
                 pass
-        return self._finished.is_set()
 
     def telemetry_snapshot(self) -> Optional[Dict[str, Any]]:
         """Cumulative phase totals so far (driver-pollable, no step close).
@@ -266,6 +273,22 @@ class _TrainSession:
 
     def finished(self) -> bool:
         return self._finished.is_set()
+
+
+def _abort_collectives() -> None:
+    """Abort this process's torch.distributed groups, so that the collectives
+    waiting in them fail and the loop thread can finish (the backend's
+    ``on_shutdown`` and ``on_start`` make the next group)."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    from torch.distributed.distributed_c10d import _abort_process_group
+
+    try:
+        _abort_process_group()
+    except Exception:  # noqa: BLE001 - a backend without abort: the drain times out
+        traceback.print_exc()
 
 
 # Bound in the worker process by init_session / torn down by shutdown_session.

@@ -1,8 +1,9 @@
 """The host-side helpers of chip_smoke.py, on the CPU: the ptxas report its
 build phase prints, the relative error its kernel checks use, the trainer
 phase's check that its own workers are gone after shutdown, the RL
-phases' numpy CartPole, runner setup and learner check, and the pipeline
-and context phases' ring check, launch counts and gangs."""
+phases' numpy CartPole, runner setup and learner check, the pipeline
+and context phases' ring check, launch counts and gangs, and the expert,
+tensor-ResNet, elastic and mesh-learner phases' gangs and their checks."""
 
 import os
 import sys
@@ -327,3 +328,133 @@ def test_pipe_ctx_gang_loop_runs_on_the_cpu(mesh):
     assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 2
     assert all(x == x for x in r0["losses"])  # finite
     assert not out["leftover_session_dirs"] and not out["leftover_worker_pids"]
+
+
+# ------------------------------------------------------------------ the rest of the mesh
+@pytest.fixture
+def no_cuda_clock(monkeypatch):
+    """The CUDA clock and memory calls the phases make in this process, as
+    no-ops on the CPU; one torch thread."""
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("model,mesh", [("moe", {"expert": 2}), ("resnet", {"tensor": 2})])
+def test_expert_tp_gang_loops_run_on_the_cpu(model, mesh):
+    # The expert_tp_gang phase's gangs at a toy size: each expert rank holds
+    # half of the experts and the whole batch, each tensor rank half of every
+    # convolution's output channels; both ranks report the same losses.
+    from ray_tpu_torch.air import ScalingConfig
+
+    if model == "moe":
+        cut = dict(n_layer=2, n_head=2, d_model=64, vocab_size=256, max_seq_len=128,
+                   moe_experts=4)
+        config = {"model": "gpt2_small", "cut": cut, "global_batch": 4, "seq": 32}
+    else:
+        cut = dict(stage_sizes=(1, 1), bottleneck=False, width=8, groupnorm_groups=4,
+                   num_classes=10)
+        config = {"model": "resnet50", "cut": cut, "global_batch": 4, "seq": 1, "image": 32}
+    config.update(warmup=1, timed=1, device="cpu")
+    out = chip_smoke.run_mesh_gang(ScalingConfig(num_workers=2, mesh=mesh), "gloo", config,
+                                   "test_expert_tp_gang")
+    r0, r1 = out["ranks"]
+    assert r0["losses"] == r1["losses"] and all(x == x for x in r0["losses"])
+    if model == "moe":
+        assert r0["local_shapes"]["moe.fc_w"] == [2, 2, 64, 256]  # (L, E / expert, d, F)
+        assert r0["tokens_per_gpu_per_step"] == 4 * 32 // 2
+    else:
+        assert r0["local_shapes"] == {"stem.conv": [7, 7, 3, 4], "head.w": [16, 5]}
+    assert not out["leftover_session_dirs"] and not out["leftover_worker_pids"]
+
+
+def _digest_tree(w):
+    return {"params": {"wte": torch.as_tensor(w)}, "count": 3}
+
+
+def test_state_digest_is_the_bits():
+    w = np.arange(12.0, dtype=np.float32).reshape(3, 4)
+    d = chip_smoke.state_digest(_digest_tree(w))
+    assert d == chip_smoke.state_digest(_digest_tree(w.copy()))
+    flipped = w.copy()
+    flipped.view(np.int32)[1, 2] ^= 1  # one bit of one element
+    assert chip_smoke.state_digest(_digest_tree(flipped)) != d
+    assert chip_smoke.state_digest({"params": {"wte": torch.as_tensor(w)}, "count": 4}) != d
+
+
+def test_check_resume_holds_the_resumed_state_to_what_the_ranks_held():
+    # World 2 held states a, b at steps 1, 2; rank 1 was lost during step 3
+    # (rank 0's step-3 state is not one the gang held); world 1 resumed at 2.
+    name = "g"
+    kv = {"g/digest/2/1/0": "a", "g/digest/2/1/1": "a", "g/digest/2/2/0": "b",
+          "g/digest/2/2/1": "b", "g/digest/2/3/0": "x", "g/digest/1/3/0": "c",
+          "g/resumed/0": {"step": 2, "digest": "b"}, "g/0": {}}
+    assert chip_smoke.check_resume(kv, name) == []
+    assert "differs from what the ranks held" in chip_smoke.check_resume(
+        {**kv, "g/resumed/0": {"step": 2, "digest": "c"}}, name)[0]
+    assert "the ranks' states differ" in chip_smoke.check_resume(
+        {**kv, "g/digest/2/1/1": "z"}, name)[0]
+    assert chip_smoke.check_resume({k: v for k, v in kv.items() if "resumed" not in k},
+                                   name) == ["no resume was recorded"]
+    assert chip_smoke.elastic_records(kv, name, "digest")[(2, 3)] == {0: "x"}
+
+
+def test_elastic_reshard_runs_on_the_cpu(no_cuda_clock, capsys):
+    # The whole elastic_reshard phase at a toy size (its checks raise):
+    # rank 1 killed after round 3, the gang re-formed at world 1 from the
+    # in-memory mirrors, the resumed state equal to what both ranks held, the
+    # final loss equal to an uninterrupted one-rank run's.
+    import json
+
+    launches = chip_smoke.phase_elastic_reshard("cpu", device="cpu")
+    assert launches == {"flash_fwd": 0, "flash_bwd": 0}  # the plain versions on the CPU
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "elastic_reshard" and line["resume_problems"] == []
+    assert line["resumed"]["step"] in (2, 3) and line["resumed_world"] == 1
+    assert len(line["resumed_rank_losses"]) == chip_smoke.ELASTIC_STEPS - line["resumed"]["step"]
+
+
+def test_rl_mesh_learner_runs_on_the_cpu(no_cuda_clock):
+    lines = chip_smoke.phase_rl_mesh_learner("cpu", device="cpu")
+    assert [line["loss"] for line in lines] == ["ppo", "dqn", "dqn_weighted"]
+    assert [line["rows_per_rank"] for line in lines] == [64, 32, 32]
+    for line in lines:
+        assert line["ranks_hold_equal_weights"]
+        assert set(line["max_rel_err_per_key"]) >= {"total_loss", "grad_norm"}
+
+
+def test_kernels_line_check_needs_the_expert_and_elastic_paths():
+    per_path = {p: 12 for p in chip_smoke.KERNEL_PATHS}
+    assert chip_smoke.check_kernels_line({"kernels": [_kernel(launches_per_path=per_path)]},
+                                         chip_smoke.KERNEL_PATHS) == []
+    for path in ("expert_gang", "elastic_reshard"):
+        assert f"flash_fwd: no launch on {path}" in chip_smoke.check_kernels_line(
+            {"kernels": [_kernel(launches_per_path={**per_path, path: 0})]},
+            chip_smoke.KERNEL_PATHS)
+
+
+def test_gang_loops_reach_a_worker_by_value():
+    # Run as a script, chip_smoke is __main__: cloudpickle sends its
+    # functions by value, with only the globals they name, so each loop
+    # reaches a worker with the helpers it calls.
+    import functools
+
+    import cloudpickle
+
+    cloudpickle.register_pickle_by_value(chip_smoke)
+    try:
+        sent = {name: cloudpickle.loads(cloudpickle.dumps(functools.partial(
+            chip_smoke._per_rank_reports, getattr(chip_smoke, name))))
+            for name in ("mesh_train_loop", "elastic_train_loop", "rl_mesh_learner_loop")}
+    finally:
+        cloudpickle.unregister_pickle_by_value(chip_smoke)
+    for name, f in sent.items():
+        assert f.func is not chip_smoke._per_rank_reports
+        assert f.args[0] is not getattr(chip_smoke, name) and f.args[0].__name__ == name
+    for name, helper in (("mesh_train_loop", "run_steps"), ("elastic_train_loop", "device_sync"),
+                         ("rl_mesh_learner_loop", "rl_learner_inputs")):
+        assert helper in sent[name].args[0].__globals__

@@ -7,7 +7,11 @@ the JAX package on the CPU.
   2}`` and ``{data 2, context 2}``, nano Llama (GQA) on ``{fsdp 2, tensor
   2}`` and ``{pipeline 2, context 2}`` (RoPE at global positions inside a
   stage), nano MoE GPT on ``{data 2, fsdp 2}`` and ``{pipeline 2, data 2}``
-  (the aux over real ticks) and nano ResNet on ``{fsdp 4}``, 3 steps each in
+  (the aux over real ticks), ``{data 2, expert 2}``, ``{expert 2, tensor 2}``
+  and ``{data 2, context 2}`` (a row's routing across context slices), and
+  nano ResNet on ``{fsdp 4}`` and ``{data 2, tensor 2}`` (4 norm groups,
+  whole in each channel slice; and at width 6 with 3 groups, which straddle
+  the slices, so their statistics are gathered), 3 steps each in
   f32, from the JAX package's initial weights carried across with
   ``params_from_numpy``. The JAX package's ``make_train_step`` runs the same
   mesh shape over 4 of the 8 virtual devices ``tests/conftest.py`` gives it
@@ -39,7 +43,8 @@ the JAX package on the CPU.
   rank holds its shard (a stage its layer, a context rank its half of each
   sequence), and the losses equal the port's single-device run (rtol 1e-5).
   Without ``device="cpu"`` the mesh wants the GPU and raises.
-- A mesh with expert parallelism raises.
+- ``ScalingConfig(mesh={"expert": 2})`` trains nano MoE through a 2-worker
+  ``TorchTrainer``, each rank holding half of the experts, as one device does.
 """
 
 import json
@@ -74,7 +79,7 @@ PARAM_ATOL = 1e-5
 ADAM_BAND = (1e-10, 1e-6)  # two decades below Adam's eps to two above
 MAX_BAND_SHARE, MAX_BAND_SHARE_MODEL = 0.025, 0.005
 GANG_TIMEOUT_S = 240
-KINDS = ("gpt", "llama", "moe", "resnet")
+KINDS = ("gpt", "llama", "moe", "resnet", "resnet_w6g3")
 CASES = [
     ("gpt", {"data": 4}),
     ("gpt", {"fsdp": 4}),
@@ -87,6 +92,11 @@ CASES = [
     ("gpt", {"data": 2, "context": 2}),
     ("llama", {"pipeline": 2, "context": 2}),
     ("moe", {"pipeline": 2, "data": 2}),
+    ("moe", {"data": 2, "expert": 2}),
+    ("moe", {"expert": 2, "tensor": 2}),
+    ("moe", {"data": 2, "context": 2}),
+    ("resnet", {"data": 2, "tensor": 2}),
+    ("resnet_w6g3", {"data": 2, "tensor": 2}),
 ]
 
 # Each rank of the gang: joins a gloo process group, then for each case
@@ -103,12 +113,14 @@ from ray_tpu_torch.models import (GPTConfig, LlamaConfig, ResNetConfig, TrainSta
                                   default_optimizer, make_train_step, shard_batch)
 from ray_tpu_torch.models.convert import params_from_numpy
 from ray_tpu_torch.models.training import model_for, tree_leaves, tree_map
-from ray_tpu_torch.parallel import MeshSpec, ShardingRules, shard_params
+from ray_tpu_torch.parallel import AXIS_ORDER, MeshSpec, ShardingRules, shard_params
 
 CONFIGS = {"gpt": lambda: GPTConfig.nano(dtype=torch.float32),
            "llama": lambda: LlamaConfig.nano(dtype=torch.float32),
            "moe": lambda: GPTConfig.nano(dtype=torch.float32, moe_experts=4),
-           "resnet": lambda: ResNetConfig.nano(dtype=torch.float32)}
+           "resnet": lambda: ResNetConfig.nano(dtype=torch.float32),
+           "resnet_w6g3": lambda: ResNetConfig.nano(dtype=torch.float32, width=6,
+                                                         groupnorm_groups=3)}
 with open(args["inputs"], "rb") as f:
     inputs = pickle.load(f)
 for i, (kind, axes) in enumerate(args["cases"]):
@@ -122,6 +134,21 @@ for i, (kind, axes) in enumerate(args["cases"]):
     opt = default_optimizer(learning_rate=args["lr"])
     state = TrainState(params=params, opt_state=opt.init(params), step=0)
     batch = shard_batch(inputs["batch"][kind], mesh)
+    spread = None
+    if axes.get("expert", 1) > 1:
+        # Each expert rank's gradient of a weight replicated over expert,
+        # before the mean across the group: the largest difference.
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(model.loss_fn(params, batch, cfg, None, None, mesh=mesh),
+                                    leaves, allow_unused=True)
+        spread = 0.0
+        for p, g in zip(leaves, grads):
+            if g is None or not p.placements[AXIS_ORDER.index("expert")].is_replicate():
+                continue
+            local = g.to_local().contiguous()
+            parts = [torch.empty_like(local) for _ in range(axes["expert"])]
+            dist.all_gather(parts, local, group=mesh.get_group("expert"))
+            spread = max([spread] + [(q - parts[0]).abs().max().item() for q in parts])
     step = make_train_step(cfg, opt, mesh=mesh)
     losses, gnorms = [], []
     for _ in range(args["steps"]):
@@ -129,7 +156,7 @@ for i, (kind, axes) in enumerate(args["cases"]):
         losses.append(m["loss"].item())
         gnorms.append(m["grad_norm"].item())
     gathered = tree_map(lambda v: v.full_tensor().detach().numpy(), state.params)
-    x = batch["images"] if kind == "resnet" else shard_batch(
+    x = batch["images"] if kind.startswith("resnet") else shard_batch(
         {"inputs": inputs["batch"][kind]["tokens"][:, :-1]}, mesh)["inputs"]
     with torch.no_grad():
         logits = model.forward(state.params, x, cfg, mesh=mesh)
@@ -138,7 +165,7 @@ for i, (kind, axes) in enumerate(args["cases"]):
     if rank == 0:
         with open(args["out"][i], "wb") as f:
             pickle.dump({"losses": losses, "gnorms": gnorms, "params": gathered,
-                         "forward": forward}, f)
+                         "forward": forward, "expert_grad_spread": spread}, f)
 dist.destroy_process_group()
 """
 
@@ -163,9 +190,13 @@ def _free_port():
 def _jax_config(kind):
     if kind == "llama":
         return JLlamaConfig.nano(dtype=jnp.float32)
-    if kind == "resnet":
-        return JResNetConfig.nano(dtype=jnp.float32)
+    if kind.startswith("resnet"):
+        return JResNetConfig.nano(dtype=jnp.float32, **_resnet_groups(kind))
     return JGPTConfig.nano(dtype=jnp.float32, **({"moe_experts": 4} if kind == "moe" else {}))
+
+
+def _resnet_groups(kind):
+    return {"width": 6, "groupnorm_groups": 3} if kind == "resnet_w6g3" else {}
 
 
 def _port_config(kind):
@@ -173,8 +204,8 @@ def _port_config(kind):
 
     if kind == "llama":
         return LlamaConfig.nano(dtype=torch.float32)
-    if kind == "resnet":
-        return ResNetConfig.nano(dtype=torch.float32)
+    if kind.startswith("resnet"):
+        return ResNetConfig.nano(dtype=torch.float32, **_resnet_groups(kind))
     return GPTConfig.nano(dtype=torch.float32, **({"moe_experts": 4} if kind == "moe" else {}))
 
 
@@ -185,7 +216,8 @@ def _batches():
     images = rng.standard_normal((RESNET_B, RESNET_HW, RESNET_HW, 3)).astype(np.float32)
     labels = rng.integers(0, 10, (RESNET_B,)).astype(np.int32)
     lm = {"tokens": tokens}
-    return {"gpt": lm, "llama": lm, "moe": lm, "resnet": {"images": images, "labels": labels}}
+    images = {"images": images, "labels": labels}
+    return {"gpt": lm, "llama": lm, "moe": lm, "resnet": images, "resnet_w6g3": images}
 
 
 def _jax_run(kind, axes, batch):
@@ -324,7 +356,7 @@ def test_mesh_forward_is_the_global_logits(gang, case):
     out = gang["ours"][case]["forward"]
     batch = _batches()[kind]
     cfg = _port_config(kind)
-    x = batch["images"] if kind == "resnet" else batch["tokens"][:, :-1]
+    x = batch["images"] if kind.startswith("resnet") else batch["tokens"][:, :-1]
     with torch.no_grad():
         want = model_for(cfg).forward(params_from_numpy(gang["ours"][case]["params"], "cpu"),
                                       torch.as_tensor(x), cfg).numpy()
@@ -348,7 +380,7 @@ def _make_fsdp_loop():
 
         mesh = session.get_mesh()
         assert isinstance(mesh, DeviceMesh) and session.get_mesh() is mesh
-        cfg = GPTConfig.nano(dtype=torch.float32)
+        cfg = GPTConfig.nano(dtype=torch.float32, moe_experts=config["moe_experts"])
         opt = default_optimizer(learning_rate=config["lr"])
         state = create_train_state(cfg, 0, opt, mesh=mesh)
         batch = shard_batch({"tokens": np.asarray(config["tokens"])}, mesh)
@@ -359,13 +391,14 @@ def _make_fsdp_loop():
             losses.append(m["loss"].item())
         session.report({"losses": losses, "mesh_dim_names": list(mesh.mesh_dim_names),
                         "mesh_shape": list(mesh.mesh.shape),
-                        "fc_w_local": list(state.params["blocks"]["fc_w"].to_local().shape),
+                        "fc_w_local": list(state.params["blocks"].get("moe", state.params[
+                            "blocks"])["fc_w"].to_local().shape),
                         "batch_local": {k: list(v.to_local().shape) for k, v in batch.items()}})
 
     return loop
 
 
-def _trainer_losses(mesh, tokens):
+def _trainer_losses(mesh, tokens, moe_experts=0):
     """``_make_fsdp_loop`` through a 2-worker ``TorchTrainer`` on ``mesh``
     (on the CPU), and the port's single-device losses on the same tokens."""
     from ray_tpu_torch.air import ScalingConfig
@@ -377,14 +410,15 @@ def _trainer_losses(mesh, tokens):
     try:
         result = TorchTrainer(
             _make_fsdp_loop(),
-            train_loop_config={"lr": LR, "steps": STEPS, "tokens": tokens.tolist()},
+            train_loop_config={"lr": LR, "steps": STEPS, "tokens": tokens.tolist(),
+                               "moe_experts": moe_experts},
             scaling_config=ScalingConfig(num_workers=2, mesh=mesh),
             backend_config=TorchConfig(device="cpu"),
         ).fit()
     finally:
         ray_tpu_torch.shutdown()
     assert result.error is None, result.error
-    cfg = GPTConfig.nano(dtype=torch.float32)
+    cfg = GPTConfig.nano(dtype=torch.float32, moe_experts=moe_experts)
     opt = default_optimizer(learning_rate=LR)
     state = create_train_state(cfg, 0, opt, device="cpu")
     step = make_train_step(cfg, opt)
@@ -450,19 +484,21 @@ def test_trainer_mesh_wants_the_gpu_unless_the_cpu_is_asked_for():
 
 
 def test_pipeline_context_and_expert_axes_raise():
-    # Since pipeline and context parallelism were ported only the expert
-    # axis raises; the name is kept from when all three did.
+    # Since the expert axis was ported no axis raises; the name is kept from
+    # when the pipeline, context and expert axes did. The calls that raised
+    # run: ScalingConfig takes each axis, and create_train_state on {expert 2}
+    # (in a 2-worker TorchTrainer) keeps half of each MoE layer's experts on a
+    # rank and trains as one device does.
     from ray_tpu_torch.air import ScalingConfig
-    from ray_tpu_torch.models import GPTConfig, create_train_state, default_optimizer
-    from ray_tpu_torch.parallel import MeshSpec
 
-    cfg = GPTConfig.nano(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        ScalingConfig(num_workers=2, mesh={"expert": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        create_train_state(cfg, 0, default_optimizer(), mesh=MeshSpec(expert=2))
-    for axis in ("pipeline", "context"):
-        ScalingConfig(num_workers=2, mesh={axis: 2})  # ported: accepted
+    for axis in ("pipeline", "context", "expert"):
+        ScalingConfig(num_workers=2, mesh={axis: 2})
+    tokens = np.random.default_rng(1).integers(0, 256, (B, S + 1)).astype(np.int32)
+    m, losses = _trainer_losses({"expert": 2}, tokens, moe_experts=4)
+    assert m["mesh_shape"] == [1, 1, 1, 2, 1, 1]
+    assert m["fc_w_local"] == [2, 2, 64, 256]  # (L, E/expert, d, F)
+    assert m["batch_local"] == {"tokens": [B, S + 1]}  # replicated over expert
+    np.testing.assert_allclose(m["losses"], losses, rtol=1e-5)
 
 
 if __name__ == "__main__":
@@ -478,3 +514,17 @@ if __name__ == "__main__":
         size = sum(b.size for b in bands.values())
         print(kind, f"model {total}/{size} = {total / size:.4%}", {
             name: f"{int(b.sum())}/{b.size} = {b.mean():.4%}" for name, b in bands.items() if b.any()})
+
+
+EXPERT_CASES = [i for i, (_, axes) in enumerate(CASES) if axes.get("expert", 1) > 1]
+
+
+@pytest.mark.parametrize("case", EXPERT_CASES,
+                         ids=["_".join(f"{a}{n}" for a, n in CASES[i][1].items())
+                              for i in EXPERT_CASES])
+def test_expert_ranks_compute_equal_replicated_gradients(gang, case):
+    # The step averages a replicated weight's gradient across the expert
+    # group (spmd.SPMD.local), which keeps bf16 replicas together on the card
+    # but would hide a rank that computed a wrong one: in f32 on the CPU
+    # every expert rank's gradient, before the mean, is the same bit for bit.
+    assert gang["ours"][case]["expert_grad_spread"] == 0.0

@@ -4,7 +4,8 @@ package's (ray_tpu.parallel) on the CPU.
 - ``ShardingRules.mesh_axes`` for every leaf of nano GPT, nano Llama (GQA)
   and nano MoE GPT, on the meshes of ``tests/test_models.py`` (``{data 2,
   tensor 4}``, ``{fsdp 8}``, ``{data 2, pipeline 2, tensor 2}``, ``{pipeline
-  2, context 2, tensor 2}``) and ``{tensor 4}`` (2 heads: replicated): the
+  2, context 2, tensor 2}``), ``{tensor 4}`` (2 heads: replicated) and the
+  expert meshes ``{data 2, expert 2}`` and ``{expert 2, tensor 2}``: the
   specs must be equal, entry for entry. The JAX side runs on the 8 virtual
   devices ``tests/conftest.py`` gives it.
 - ``MeshSpec``'s shape and axis order, and a wrong device count raising.
@@ -33,6 +34,8 @@ MESHES = {
     "data2_pipeline2_tensor2": dict(data=2, pipeline=2, tensor=2),
     "pipeline2_context2_tensor2": dict(pipeline=2, context=2, tensor=2),
     "tensor4": dict(tensor=4),
+    "data2_expert2": dict(data=2, expert=2),
+    "expert2_tensor2": dict(expert=2, tensor=2),
 }
 MODELS = {
     "gpt_nano": ((jgpt, jgpt.GPTConfig.nano(dtype=jnp.float32)),
@@ -76,6 +79,12 @@ def test_mesh_axes_equal_the_jax_packages(model_name, mesh_name):
     want = {name: tuple(jrules.mesh_axes(ax, mesh=jmesh, shape=shapes[name].shape))
             for name, ax in jaxes.items()}
     assert got == want
+    if model_name == "moe_gpt_nano" and "expert2" in mesh_name:
+        # The experts split over expert; their hidden dim over tensor.
+        tensor = "tensor" if "tensor2" in mesh_name else None
+        assert got["blocks.moe.fc_w"] == (None, "expert", None, tensor)
+        assert got["blocks.moe.proj_w"] == (None, "expert", tensor, None)
+        assert got["blocks.moe.router_w"] == (None, None, None)
     if mesh_name == "tensor4" and model_name == "gpt_nano":
         # 2 heads on tensor=4: replicated; the 256-wide MLP still splits.
         assert got["blocks.qkv_w"] == (None, None, None, None, None)

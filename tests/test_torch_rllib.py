@@ -352,8 +352,159 @@ def test_torch_learner_state_round_trips_and_mesh_raises():
     b.load_state(a.state())
     ma, mb = a.update(batch), b.update(batch)
     assert ma == mb
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        TorchLearner(tm, tloss, mesh=object(), device="cpu")
+    # The mesh learner (the name is kept from when any mesh raised): a mesh
+    # over more than "data" raises, as the JAX learner shards only "data"; a
+    # world-1 {data 1} mesh updates as the plain learner does.
+    with pytest.raises(ValueError, match="'data' only"):
+        TorchLearner(tm, tloss, mesh={"data": 2, "tensor": 2}, device="cpu")
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshSpec
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        c = TorchLearner(tm, tloss, optimizer=adam(1e-3, 0.5), mesh=MeshSpec(data=1).build("cpu"))
+        c.load_state(a.state())
+        a2 = TorchLearner(tm, tloss, optimizer=adam(1e-3, 0.5), device="cpu")
+        a2.load_state(a.state())
+        assert c.update(batch) == a2.update(batch)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+# Each rank of the mesh learner's gang: a TorchLearner on a {data 2} mesh over
+# gloo, from the carried weights, through the given batches; rank 0 writes
+# each update's aux and the final weights.
+MESH_LEARNER_RANK = r"""
+import datetime, json, pickle, sys
+import numpy as np, torch, torch.distributed as dist
+args, rank = json.loads(sys.argv[1]), int(sys.argv[2])
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args['port']}", rank=rank,
+                        world_size=2, timeout=datetime.timedelta(seconds=60))
+from ray_tpu_torch.parallel import MeshSpec
+from ray_tpu_torch.rllib.algorithms import dqn, ppo
+from ray_tpu_torch.rllib.core import distributional, rl_module
+from ray_tpu_torch.rllib.core.learner import TorchLearner
+with open(args["inputs"], "rb") as f:
+    inputs = pickle.load(f)
+mesh = MeshSpec(data=2).build("cpu")
+out = {}
+dims = (args["obs"], args["act"], tuple(args["hid"]), "tanh")
+for case, c in inputs.items():
+    if c["kind"] == "mlp":
+        cfg = ppo.PPOConfig().training(entropy_coeff=0.01, vf_clip_param=1.0)
+        module, loss = rl_module.MLPModule(*dims), ppo.make_ppo_loss(cfg)
+    elif c["kind"] == "q":
+        module, loss = rl_module.QMLPModule(*dims), dqn.make_dqn_loss(dqn.DQNConfig())
+    else:
+        module = distributional.DistributionalQModule(*dims, num_atoms=11, v_min=-5.0,
+                                                      v_max=5.0, dueling=False)
+        loss = dqn.make_c51_loss(dqn.DQNConfig())
+    learner = TorchLearner(module, loss, learning_rate=args["lr"], mesh=mesh)
+    learner.set_weights(c["weights"])
+    if c["extra"] is not None:
+        learner.set_extra(c["extra"])
+    out[case] = {"aux": [learner.update(b) for b in c["batches"]],
+                 "weights": learner.get_weights()}
+if rank == 0:
+    with open(args["out"], "wb") as f:
+        pickle.dump(out, f)
+dist.destroy_process_group()
+"""
+
+
+def _weighted(batch, seed):
+    """``batch`` with loss weights as prioritized replay and zero-weighted
+    truncations give them: importance weights in (0.2, 1], a quarter of the
+    first half's rows at 0, so the two halves' weight sums differ."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.2, 1.0, len(batch["loss_weight"])).astype(np.float32)
+    w[: len(w) // 8] = 0.0
+    return {**batch, "loss_weight": w}
+
+
+def test_mesh_learner_matches_one_learner_and_jax(tmp_path):
+    # Two ranks on {data 2} over gloo, each taking 8 of a batch's 16 rows,
+    # against one TorchLearner on the whole batch (1e-5, the learners' bar)
+    # and the JAX learner on a {data 2} mesh of 2 virtual devices: PPO; DQN
+    # with the all-ones loss weights a runner records with true final
+    # observations; DQN and C51 with weights that differ between the rows,
+    # whose weighted means need the whole batch's weight sum (batch_sum).
+    import json
+    import pickle
+    import subprocess
+
+    from ray_tpu.parallel import MeshSpec as JMeshSpec
+
+    lr, updates = 1e-3, 5
+    cases = {"ppo": "mlp-ppo", "dqn": "q-dqn-double", "dqn_weighted": "q-dqn-double",
+             "c51_weighted": "c51-c51-double"}
+    inputs, ref = {}, {}
+    for name, case in cases.items():
+        jm, tm, w, _, jloss, tloss, _, extra = _loss_case(case)
+        make = _ppo_batch if name == "ppo" else _dqn_batch
+        batches = [make(10 + i) for i in range(updates)]
+        if name == "dqn":
+            batches = [{**b, "loss_weight": np.ones_like(b["loss_weight"])} for b in batches]
+        if name.endswith("_weighted"):
+            batches = [_weighted(b, 20 + i) for i, b in enumerate(batches)]
+            # The halves' own weighted means are not the whole batch's.
+            tb = {k: torch.tensor(v) for k, v in batches[0].items()}
+            textra = {"target_params": params_from_numpy(extra["target_params"], "cpu")}
+            tw = params_from_numpy(w, "cpu")
+            halves = [tloss(tm, tw, {k: v[i * 8:(i + 1) * 8] for k, v in tb.items()}, textra)[0]
+                      for i in range(2)]
+            assert _rel(float(sum(halves)) / 2, tloss(tm, tw, tb, textra)[0].item()) > 1e-3
+        inputs[name] = {"kind": case.split("-")[0], "weights": w, "extra": extra,
+                        "batches": batches}
+        one = TorchLearner(tm, tloss, learning_rate=lr, device="cpu")
+        jl = JaxLearner(jm, jloss, learning_rate=lr,
+                        mesh=JMeshSpec(data=2).build(jax.devices()[:2]))
+        jl.set_weights(jax.tree.map(jnp.asarray, w))
+        jl.opt_state = jl.optimizer.init(jl.params)
+        one.set_weights(w)
+        if extra:
+            one.set_extra(extra)
+            jl.set_extra(jax.tree.map(jnp.asarray, extra))
+        ref[name] = {"one": [one.update(b) for b in batches], "jax": [jl.update(b) for b in batches],
+                     "one_weights": one.get_weights(), "jax_weights": _numpy(jl.get_weights())}
+    with open(tmp_path / "inputs.pkl", "wb") as f:
+        pickle.dump(inputs, f)
+    args = {"port": _free_port(), "lr": lr, "inputs": str(tmp_path / "inputs.pkl"),
+            "out": str(tmp_path / "out.pkl"), "obs": OBS, "act": ACT, "hid": HID}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    procs = [subprocess.Popen([sys.executable, "-c", MESH_LEARNER_RANK, json.dumps(args), str(r)],
+                              cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(l[-3000:] for l in logs)
+    with open(tmp_path / "out.pkl", "rb") as f:
+        ours = pickle.load(f)
+    for name in cases:
+        for i, got in enumerate(ours[name]["aux"]):
+            for want in (ref[name][r][i] for r in ("one", "jax")):
+                assert got.keys() == want.keys()
+                for k in want:
+                    assert _rel(got[k], want[k]) <= 1e-5, (name, i, k)
+        w = ours[name]["weights"]
+        for want in (ref[name]["one_weights"], _reorder(w, ref[name]["jax_weights"])):
+            for a, b in zip(tree_leaves(w), tree_leaves(want)):
+                _close(a, b, 1e-5)
 
 
 # ------------------------------------------------------------------ numpy code

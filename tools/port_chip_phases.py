@@ -8,7 +8,9 @@ checkout or from another one (e.g. a parent commit unpacked with
 PHASE is ``resnet50`` (ResNet-50 at B 128), ``rl_learner_check``, ``rl``
 (every RLlib phase on one runtime), ``mesh`` (``collective_nccl``, then
 ``mesh_gang`` against the main path's first step, taken here) or
-``pipe_ctx`` (``ring_check``, then ``pipe_ctx_gang`` against the same). The phases run in this process, after the
+``pipe_ctx`` (``ring_check``, then ``pipe_ctx_gang`` against the same) or
+``mesh_rest`` (``moe``, then ``expert_tp_gang`` against it,
+``elastic_reshard`` and ``rl_mesh_learner``). The phases run in this process, after the
 flags ``chip_smoke.py`` sets (no TF32); each prints its JSON line, and the
 card's name and power limit come first. Run one checkout per process: both
 trees name their package ``ray_tpu_torch``. For an A/B, alternate them:
@@ -24,7 +26,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = {"resnet50": "phase_resnet50", "rl_learner_check": "phase_rl_learner_check",
-          "rl": "run_rl_phases", "mesh": "run_mesh_phases", "pipe_ctx": "run_pipe_ctx_phases"}
+          "rl": "run_rl_phases", "mesh": "run_mesh_phases", "pipe_ctx": "run_pipe_ctx_phases",
+          "mesh_rest": "run_mesh_rest_phases"}
 
 
 def main(argv=None):

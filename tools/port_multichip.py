@@ -41,6 +41,25 @@ a failed check exits non-zero. The phases, all by default, in this order:
   step on context rank r, the ring's rotation overlapping its kernels (device
   ms in which both run), peak memory per card.
 
+- ``gpt2_moe8_dp2_ep2``, ``gpt2_moe8_ep2_tp2``: GPT-2 small with 8 Switch
+  experts on ``{"data": 2, "expert": 2}`` and ``{"expert": 2, "tensor": 2}``
+  (each card holds 4 experts a layer; the batch is replicated over expert and
+  tensor), global B 64 x S 1024, against the same model on card 0 (B 16,
+  tokens/s) and its loss on the whole global batch.
+- ``resnet50_dp2_tp2``: ResNet-50 on ``{"data": 2, "tensor": 2}`` (each card
+  computes half of every convolution's output channels), global B 256 x
+  224^2, against card 0 at B 128 (images/s) and one card's loss on the
+  global batch.
+- ``gpt2_elastic_dp4_to3``: GPT-2 small (bf16) data-parallel under
+  ``ScalingConfig(num_workers=4, elastic=True)`` over NCCL, global B 48,
+  each rank stashing its shard of the params and Adam moments every step;
+  rank 1 is killed after round 5 and the gang re-forms at world 3 from the
+  in-memory mirrors (uneven ``array_split`` shards): the resumed state
+  against what the ranks held, tokens/s per GPU at 4 and at 3 (over the
+  gang's wall time with the stash and digest, by the slowest rank's step,
+  and by the fastest's), the resize's seconds, the first loss against one
+  card's.
+
 ``--rehearse`` runs every phase on the CPU at toy sizes (gloo, nano
 configs, no launch or memory checks), to find faults before a chip call.
 """
@@ -76,7 +95,14 @@ LLAMA_GLOBAL_B, LLAMA_S, LLAMA_STEPS = 4, 8192, 3
 # split across ranks in another order.
 FIRST_LOSS_TOL = 1e-3
 PHASES = ("collective_bw", "gpt2_dp4", "gpt2_fsdp4", "gpt2_dp2_tp2", "llama3_8b_fsdp4",
-          "gpt2_pp2_dp2", "gpt2_cp2_dp2", "llama3_8b_pp4", "llama3_8b_cp4")
+          "gpt2_pp2_dp2", "gpt2_cp2_dp2", "llama3_8b_pp4", "llama3_8b_cp4",
+          "gpt2_moe8_dp2_ep2", "gpt2_moe8_ep2_tp2", "resnet50_dp2_tp2", "gpt2_elastic_dp4_to3")
+MOE_EXPERTS = chip_smoke.MOE_EXPERTS
+RESNET_GLOBAL_B, RESNET_ONE_CARD_B = 256, chip_smoke.RESNET_B
+# The elastic case: B 48 divides over 4 ranks and over 3; rank 1 is killed
+# after round ELASTIC_KILL_ROUND of ELASTIC_STEPS, and the re-formed gang's
+# last step is profiled for its NCCL time.
+ELASTIC_GLOBAL_B, ELASTIC_STEPS, ELASTIC_KILL_ROUND = 48, 12, 5
 LLAMA_CP_LAYERS = 4  # chip_smoke's llama depth: one card holds it, for the baseline
 OUT = os.path.join(ROOT, "chiprun_out", "port_multichip.jsonl")
 
@@ -84,6 +110,8 @@ OUT = os.path.join(ROOT, "chiprun_out", "port_multichip.jsonl")
 NANO_GPT = dict(n_layer=2, n_head=2, d_model=64, vocab_size=256, max_seq_len=128)
 NANO_LLAMA = dict(n_layer=4, n_head=4, n_kv_head=2, d_model=64, d_ff=128, vocab_size=256,
                   max_seq_len=128)  # 4 layers: one a stage on {pipeline 4}
+NANO_RESNET = dict(stage_sizes=(1, 1), bottleneck=False, width=8, groupnorm_groups=4,
+                   num_classes=10)
 
 
 def record(line):
@@ -282,10 +310,11 @@ def phase_collective_bw(smi, rehearse):
 
 
 # ---------------------------------------------------------------------------- trainer phases
-def one_card_baseline(smi, rehearse):
+def one_card_baseline(smi, rehearse, elastic=False):
     """The main path on card 0 (tokens/s), and the one-card loss of the
     initial weights on the gpt2 phases' global batch (the mean of its four
-    16-row chunks' means)."""
+    16-row chunks' means; with ``elastic``, on the elastic case's batch, the
+    mean of its three)."""
     import torch
 
     from ray_tpu_torch.models import GPTConfig, gpt
@@ -298,6 +327,8 @@ def one_card_baseline(smi, rehearse):
         device, items = None, chip_smoke.B * S
     seq = 32 if rehearse else S
     gb = 8 if rehearse else GPT_GLOBAL_B
+    if elastic:
+        gb = 12 if rehearse else ELASTIC_GLOBAL_B
     out = {}
     if not rehearse:
         cfg_, opt, state, batch = chip_smoke.build_workload()
@@ -311,13 +342,14 @@ def one_card_baseline(smi, rehearse):
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size - 1, (gb, seq + 1))
     chunks = []
     with torch.no_grad():
-        for rows in np.split(tokens.astype(np.int32), 4):
+        for rows in np.split(tokens.astype(np.int32), 3 if elastic else 4):
             batch = {"tokens": torch.as_tensor(rows, device=params["wte"].device)}
             chunks.append(gpt.loss_fn(params, batch, cfg).item())
     del params
     if not rehearse:
         torch.cuda.empty_cache()
-    out["one_card_loss_global_batch"] = float(np.mean(chunks))
+    out["one_card_loss_elastic_batch" if elastic else "one_card_loss_global_batch"] = \
+        float(np.mean(chunks))
     record({"phase": "one_card_baseline", **out, "card": smi})
     return out
 
@@ -327,13 +359,13 @@ def trainer_phase(name, smi, rehearse, mesh, model, global_batch, seq, warmup, t
 
     cut = dict(cut or {})
     if rehearse:
-        cut = {**(NANO_LLAMA if model == "llama3_8b" else NANO_GPT),
-               **{k: v for k, v in cut.items() if k == "n_layer"}}
+        nano = {"llama3_8b": NANO_LLAMA, "resnet50": NANO_RESNET}.get(model, NANO_GPT)
+        cut = {**nano, **{k: v for k, v in cut.items() if k in ("n_layer", "moe_experts")}}
         global_batch = min(global_batch, 8 if model != "llama3_8b" else 4)
-        seq, warmup, timed = 32, 1, 1
+        seq, warmup, timed = (1 if model == "resnet50" else 32), 1, 1
     scaling = ScalingConfig(num_workers=WORLD, use_gpu=not rehearse, mesh=mesh)
     config = {"model": model, "cut": cut, "global_batch": global_batch, "seq": seq,
-              "warmup": warmup, "timed": timed}
+              "warmup": warmup, "timed": timed, "image": 32 if rehearse else 224}
     if rehearse:
         config["device"] = "cpu"
     out = chip_smoke.run_mesh_gang(scaling, "gloo" if rehearse else "nccl", config,
@@ -352,6 +384,7 @@ def trainer_phase(name, smi, rehearse, mesh, model, global_batch, seq, warmup, t
             "state_peak_gib_per_rank": [r["state_peak_gib"] for r in ranks],
             "init_s_per_rank": [r["init_s"] for r in ranks],
             "launches_per_step_rank0": r0["launches_per_step"],
+            "local_shapes_rank0": r0["local_shapes"],
             "p2p_overlap_per_step_per_rank": [r["p2p_overlap_per_step"] for r in ranks],
             "devices": [(r["cuda_visible_devices"], r["device"]) for r in ranks],
             "fit_s": out["fit_s"], "leftover_session_dirs": out["leftover_session_dirs"],
@@ -506,6 +539,181 @@ def phase_llama_cp4(smi, rehearse):
     return line
 
 
+def one_card_zoo(smi, rehearse, model):
+    """MoE GPT-2 (8 experts, B 16) or ResNet-50 (B 128) on card 0 in this
+    process: tokens/s or images/s over 3 timed steps after 2, and the loss of
+    the initial weights on the mesh phases' global batch (MoE: the whole
+    batch at once, its aux a mean over all rows; ResNet: the mean of two
+    128-image halves). The rehearsal: the loss alone, on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from ray_tpu_torch.models import (GPTConfig, ResNetConfig, create_train_state,
+                                      default_optimizer, gpt, resnet, shard_batch)
+
+    device = "cpu" if rehearse else None
+    if model == "resnet50":
+        cfg = dataclasses.replace(ResNetConfig.resnet50(), **(NANO_RESNET if rehearse else {}))
+        image, gb, one_b, seq, mod = (32 if rehearse else 224), RESNET_GLOBAL_B, \
+            RESNET_ONE_CARD_B, 1, resnet
+        gb, one_b = (8, 4) if rehearse else (gb, one_b)
+    else:
+        cfg = dataclasses.replace(GPTConfig.gpt2_small(), moe_experts=MOE_EXPERTS,
+                                  **(NANO_GPT if rehearse else {}))
+        image, seq, mod = 224, (32 if rehearse else S), gpt
+        gb, one_b = (8, 4) if rehearse else (GPT_GLOBAL_B, chip_smoke.B)
+    out = {}
+    if not rehearse:
+        opt = default_optimizer(learning_rate=3e-4)
+        state = create_train_state(cfg, 0, opt)
+        batch = shard_batch(chip_smoke.mesh_batch(cfg, one_b, seq, image))
+        _, _, run = chip_smoke.run_steps(cfg, opt, state, batch, warmup=2, timed=3,
+                                         items=one_b * seq)
+        out.update(items_per_s=run["items_per_s"], step_ms_median=run["step_ms_median"],
+                   peak_memory_gib=run["peak_memory_gib"], batch=one_b)
+        del state, batch
+        torch.cuda.empty_cache()
+    params = mod.init_params(cfg, 0, device)
+    host = chip_smoke.mesh_batch(cfg, gb, seq, image)
+    parts = 2 if model == "resnet50" else 1
+    with torch.no_grad():
+        losses = [mod.loss_fn(params, chunk, cfg).item() for chunk in _split(host, parts, device)]
+    del params
+    if not rehearse:
+        torch.cuda.empty_cache()
+    out["one_card_loss_global_batch"] = float(np.mean(losses))
+    record({"phase": f"{model}_one_card", **out, "card": smi})
+    return out
+
+
+def _split(host, parts, device):
+    """``parts`` equal row blocks of a host batch, as tensors on ``device``
+    (``None``: the GPU)."""
+    from ray_tpu_torch.models import shard_batch
+
+    return [shard_batch({k: v[i * len(v) // parts:(i + 1) * len(v) // parts]
+                         for k, v in host.items()}, device=device) for i in range(parts)]
+
+
+def phase_zoo_mesh(name, mesh, model, smi, rehearse, baseline):
+    """MoE GPT-2 or ResNet-50 on a four-card mesh against ``baseline`` (its
+    one-card line from ``one_card_zoo``)."""
+    if model == "resnet50":
+        line, ranks = trainer_phase(name, smi, rehearse, mesh, "resnet50", RESNET_GLOBAL_B, 1,
+                                    GPT_WARMUP, GPT_TIMED)
+        line["images_per_s_per_gpu"] = line.pop("tokens_per_s_per_gpu")
+        per_gpu = line["images_per_s_per_gpu"]
+    else:
+        line, ranks = trainer_phase(name, smi, rehearse, mesh, "gpt2_small", GPT_GLOBAL_B, S,
+                                    GPT_WARMUP, GPT_TIMED, cut={"moe_experts": MOE_EXPERTS})
+        per_gpu = line["tokens_per_s_per_gpu"]
+    first = line["losses"][0]
+    line.update(one_card=baseline, first_loss_abs_err_vs_one_card=abs(
+        first - baseline["one_card_loss_global_batch"]))
+    if "items_per_s" in baseline:
+        line["per_gpu_over_one_card"] = [t / baseline["items_per_s"] for t in per_gpu]
+    record(line)
+    check_launches(name, ranks, mesh, 12 if model != "resnet50" else 0, GPT_GLOBAL_B, rehearse)
+    require(line["first_loss_abs_err_vs_one_card"] <= FIRST_LOSS_TOL,
+            f"{name}: first loss {first} vs one card {baseline['one_card_loss_global_batch']}")
+    return line
+
+
+def phase_elastic(smi, rehearse, baseline):
+    """GPT-2 small (bf16) data-parallel on an elastic gang of 4 over NCCL,
+    rank 1 killed after round ``ELASTIC_KILL_ROUND``: the gang re-forms at
+    world 3 and finishes ``ELASTIC_STEPS``."""
+    from ray_tpu_torch.air import ScalingConfig
+    from ray_tpu_torch.util.preemption import (PreemptionEvent, PreemptionSchedule,
+                                               PreemptionSimulator)
+
+    name = "gpt2_elastic_dp4_to3"
+    gb = 12 if rehearse else ELASTIC_GLOBAL_B
+    config = {"dtype": "float32" if rehearse else "bfloat16",
+              "cut": NANO_GPT if rehearse else {}, "global_batch": gb,
+              "seq": 32 if rehearse else S, "steps": ELASTIC_STEPS,
+              "rules": chip_smoke.ELASTIC_RULES}
+    if rehearse:
+        config["device"] = "cpu"
+    sim = PreemptionSimulator(PreemptionSchedule(
+        [PreemptionEvent(at_round=ELASTIC_KILL_ROUND, rank=1, mode="kill")]))
+    scaling = ScalingConfig(num_workers=WORLD, use_gpu=not rehearse, elastic=True)
+    elastic = chip_smoke.ElasticRun(sim)
+    if rehearse:
+        # Over gloo a rank blocked in a collective on a live peer that
+        # stopped waits out the group's timeout (gloo's abort does not fail
+        # it; NCCL's does): a short group timeout inside a longer drain.
+        elastic.system_config["elastic_drain_timeout_s"] = 45.0
+        elastic.group_timeout_s = 20.0
+    out = chip_smoke.run_mesh_gang(scaling, "gloo" if rehearse else "nccl", config,
+                                   f"multichip_{name}", loop=chip_smoke.elastic_train_loop,
+                                   elastic=elastic)
+    kv_name = f"multichip_{name}"
+    steps = chip_smoke.elastic_records(out["kv"], kv_name, "step")
+    problems = chip_smoke.check_resume(out["kv"], kv_name)
+    ranks = out["ranks"]
+    seq = config["seq"]
+
+    def per_gpu(world):
+        """This world's steps after its first (which warms up or resumes):
+        tokens/s per GPU over the gang's wall time, stash and digest
+        included (the last rank's ``t_done`` from step to step); by the
+        slowest rank's step (a data-parallel step ends with it); and by the
+        fastest rank's, the last to reach the step's collectives (a
+        diagnostic of the step alone: it leaves out the wait for a rank
+        still stashing or hashing)."""
+        done = [by_rank for (w, st), by_rank in sorted(steps.items())
+                if w == world and len(by_rank) == w]
+        tokens = gb * seq / world
+        ends = [max(v["t_done"] for v in by_rank.values()) for by_rank in done]
+        wall_ms = 1e3 * (ends[-1] - ends[0]) / (len(ends) - 1)
+        out = {"steps": len(done), "per_rank": [[by_rank[r] for r in range(world)]
+                                                for by_rank in done],
+               "wall_ms_per_step": wall_ms, "tokens_per_s_per_gpu_wall": tokens / (wall_ms / 1e3)}
+        for key, pick in (("_slowest", max), ("_last_arrival", min)):
+            ms = [pick(v["step_ms"] for v in by_rank.values()) for by_rank in done]
+            med = float(np.median(ms[1:]))
+            out.update({f"step_ms{key}": ms, f"step_ms_median{key}": med,
+                        f"tokens_per_s_per_gpu{key}": tokens / (med / 1e3)})
+        return out
+
+    first = steps[(WORLD, 1)][0]["loss"]
+    one = baseline["one_card_loss_elastic_batch"]
+    line = {"phase": name, "entry": "TorchTrainer.fit", "model": "gpt2_small",
+            "dtype": config["dtype"], "global_batch": gb, "seq": seq, "steps": ELASTIC_STEPS,
+            "backend": ranks[0]["backend"], "fired": sim.fired,
+            "resize_events": out["resize_events"], "resumed": ranks[0]["resumed"],
+            "resume_problems": problems, "world4": per_gpu(WORLD), "world3": per_gpu(WORLD - 1),
+            "first_loss": first, "one_card_loss": one, "first_loss_abs_err_vs_one_card":
+            abs(first - one), "final_losses": ranks[0]["losses"],
+            "peak_memory_gib_per_rank": [r["peak_memory_gib"] for r in ranks],
+            "collective_ms_last_step_per_rank": [r["collective_ms_last_step"] for r in ranks],
+            "launches_per_step_rank0": ranks[0]["launches_per_step"],
+            "fit_s": out["fit_s"], "leftover_session_dirs": out["leftover_session_dirs"],
+            "leftover_worker_pids": out["leftover_worker_pids"], "card": smi}
+    if "main_path_tokens_per_s" in baseline:
+        for w in ("world4", "world3"):
+            for key in ("_wall", "_slowest", "_last_arrival"):
+                line[w][f"over_one_card{key}"] = (line[w][f"tokens_per_s_per_gpu{key}"]
+                                                  / baseline["main_path_tokens_per_s"])
+    record(line)
+    events = out["resize_events"]
+    require([f["mode"] for f in sim.fired] == ["kill"], f"{name}: fired {sim.fired}")
+    require(len(events) == 1 and (events[0]["old_world"], events[0]["new_world"]) ==
+            (WORLD, WORLD - 1) and events[0]["ckpt_source"] == "memory",
+            f"{name}: resize events {events}")
+    require(not problems, f"{name}: {problems}")
+    require(line["first_loss_abs_err_vs_one_card"] <= FIRST_LOSS_TOL,
+            f"{name}: first loss {first} vs one card's {one}")
+    require(not out["leftover_session_dirs"] and not out["leftover_worker_pids"],
+            f"{name}: left after shutdown")
+    if not rehearse:
+        for r in ranks:
+            chip_smoke.check_launches(f"{name} rank {r['rank']}", r, 12)
+    return line
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rehearse", action="store_true",
@@ -547,7 +755,8 @@ def main(argv=None):
     lines = {}
     if "collective_bw" in args.phases:
         lines["collective_bw"] = phase_collective_bw(card, rehearse)
-    gpt_phases = [p for p in args.phases if p.startswith("gpt2")]
+    gpt_phases = [p for p in args.phases if p in ("gpt2_dp4", "gpt2_fsdp4", "gpt2_dp2_tp2",
+                                                  "gpt2_pp2_dp2", "gpt2_cp2_dp2")]
     if gpt_phases:
         baseline = one_card_baseline(card, rehearse)
         dp = phase_gpt2("gpt2_dp4", None, card, rehearse, baseline)
@@ -562,6 +771,17 @@ def main(argv=None):
         phase_llama(card, rehearse, "llama3_8b_pp4", {"pipeline": WORLD}, fsdp)
     if "llama3_8b_cp4" in args.phases:
         phase_llama_cp4(card, rehearse)
+    for model, cases in (("gpt2_moe8", (("gpt2_moe8_dp2_ep2", {"data": 2, "expert": 2}),
+                                        ("gpt2_moe8_ep2_tp2", {"expert": 2, "tensor": 2}))),
+                         ("resnet50", (("resnet50_dp2_tp2", {"data": 2, "tensor": 2}),))):
+        chosen = [(n, m) for n, m in cases if n in args.phases]
+        if chosen:
+            zoo = one_card_zoo(card, rehearse, "resnet50" if model == "resnet50" else "moe")
+            for name, mesh in chosen:
+                phase_zoo_mesh(name, mesh, "resnet50" if model == "resnet50" else "gpt2_moe8",
+                               card, rehearse, zoo)
+    if "gpt2_elastic_dp4_to3" in args.phases:
+        phase_elastic(card, rehearse, one_card_baseline(card, rehearse, elastic=True))
     record({"phase": "done", "seconds": time.perf_counter() - t0, "phases": args.phases})
 
 
