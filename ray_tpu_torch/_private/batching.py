@@ -39,6 +39,7 @@ from typing import Any, Callable, List, Optional
 
 from ray_tpu_torch._private import failpoints, serialization
 from ray_tpu_torch._private.concurrency import any_thread, lock_guarded
+from ray_tpu_torch.exceptions import FrameTooLargeError
 
 # Process-wide batching stats, exported as ray_tpu_batch_* metrics by the
 # telemetry collector (telemetry.ensure_batching_metrics). Plain ints bumped
@@ -245,15 +246,18 @@ class BatchedSender:
             return
         if self._stats:
             _record_flush(len(msgs), nbytes)
-        if len(msgs) == 1:
-            data = serialization.dumps(msgs[0])
-        else:
-            data = serialization.dumps(("batch", msgs))
-        if failpoints.ENABLED and failpoints.inject_send(
-            "batch.flush", self._raw_send, data, self._close_fn
-        ):
+        try:
+            datas = serialization.frames(msgs[0] if len(msgs) == 1 else ("batch", msgs))
+        except FrameTooLargeError as e:
+            # A lone buffered message: its sender has moved on.
+            serialization.report_dropped_frame("send", e)
             return
-        self._raw_send(data)
+        for data in datas:
+            if failpoints.ENABLED and failpoints.inject_send(
+                "batch.flush", self._raw_send, data, self._close_fn
+            ):
+                continue
+            self._raw_send(data)
 
     def _arm_timer(self) -> None:
         self._dirty.set()

@@ -29,6 +29,7 @@ import time
 from typing import Dict
 
 from ray_tpu_torch._private import failpoints, serialization, session_monitor
+from ray_tpu_torch._private.wire import WireDecodeError
 
 
 class NodeDaemon:
@@ -343,6 +344,9 @@ class NodeDaemon:
             while True:
                 try:
                     msg = serialization.loads(self.conn.recv_bytes())
+                except WireDecodeError as e:
+                    serialization.report_dropped_frame("daemon", e)
+                    continue
                 except (EOFError, OSError):
                     # Head connection lost. A restarted head (--persist FT)
                     # binds the same address: REJOIN instead of tearing the

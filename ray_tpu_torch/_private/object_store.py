@@ -31,7 +31,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch._private import failpoints
 from ray_tpu_torch._private.ids import ObjectID
-from ray_tpu_torch._private.serialization import SerializedValue, deserialize, serialize
+from ray_tpu_torch._private.serialization import (
+    FRAME_HEADROOM,
+    SerializedValue,
+    check_frame,
+    deserialize,
+    serialize,
+)
 
 _ALIGN = 64
 
@@ -468,6 +474,11 @@ class LocalObjectStore:
     def put_serialized(self, object_id: ObjectID, sv: SerializedValue, inline_threshold: int) -> ObjectMeta:
         contained = sv.contained_ids or None
         if sv.total_size <= inline_threshold or not sv.buffers:
+            # An inline value rides in the frame of the message that carries
+            # it: one too large for a frame raises here, in its sender.
+            if sv.total_size > inline_threshold:
+                check_frame(sv.total_size, "an inline value (no out-of-band buffers)",
+                            FRAME_HEADROOM)
             # Hot path (every small task result / put): bypass the dataclass
             # __init__'s 12 field assignments (_fast_meta_fields guards the
             # field set at import).

@@ -51,6 +51,8 @@ from ray_tpu_torch._private.ids import (
 from ray_tpu_torch._private.object_store import ObjectMeta
 from ray_tpu_torch._private.protocol import ExecRequest, FunctionDescriptor, TaskSpec
 from ray_tpu_torch._private.worker_main import WorkerArgs, worker_loop
+from ray_tpu_torch._private.wire import WireDecodeError
+from ray_tpu_torch.exceptions import FrameTooLargeError
 
 _mp = multiprocessing.get_context("spawn")
 # How long shutdown waits for killed worker processes to exit.
@@ -111,6 +113,27 @@ class _RemoteProc:
         pass
 
 
+def _frames(msg) -> List[bytes]:
+    """``msg``'s frames; one over ``wire_max_frame_bytes`` is reported and
+    dropped (the connection stays up; the sender-side checks keep task
+    arguments and results from getting here)."""
+    try:
+        return serialization.frames(msg)
+    except FrameTooLargeError as e:
+        serialization.report_dropped_frame("scheduler send", e)
+        return []
+
+
+def _decode(data: bytes, where: str):
+    """One received frame's message, or None for a frame that does not decode
+    (reported; the frame was read whole, so the stream stays aligned)."""
+    try:
+        return serialization.loads(data)
+    except WireDecodeError as e:
+        serialization.report_dropped_frame(where, e)
+        return None
+
+
 class _ConnSender:
     """Shared locked-send over a multiprocessing connection."""
 
@@ -123,10 +146,11 @@ class _ConnSender:
             verdict = failpoints.inject_handle_send("sched.send")
             if verdict is not None:
                 return verdict
-        data = serialization.dumps(msg)
+        datas = _frames(msg)
         with self._send_lock:
             try:
-                self.conn.send_bytes(data)
+                for data in datas:
+                    self.conn.send_bytes(data)
                 return True
             except (OSError, ValueError, BrokenPipeError):
                 return False
@@ -213,14 +237,15 @@ class WorkerHandle:
             verdict = failpoints.inject_handle_send("sched.send")
             if verdict is not None:
                 return verdict
-        data = serialization.dumps(msg)
+        datas = _frames(msg)
         with self.send_lock:
             if self.conn is None:
                 # Worker still starting up: queue until it connects back.
-                self.outbox.append(data)
+                self.outbox.extend(datas)
                 return True
             try:
-                self.conn.send_bytes(data)
+                for data in datas:
+                    self.conn.send_bytes(data)
                 return True
             except (OSError, ValueError, BrokenPipeError):
                 return False
@@ -1573,8 +1598,9 @@ class Scheduler:
     def _drain_worker(self, wh: WorkerHandle):
         try:
             while wh.conn.poll():
-                data = wh.conn.recv_bytes()
-                self._on_worker_message(wh, serialization.loads(data))
+                msg = _decode(wh.conn.recv_bytes(), "scheduler <- worker")
+                if msg is not None:
+                    self._on_worker_message(wh, msg)
         except (EOFError, OSError):
             self._on_worker_death(wh)
 
@@ -1582,8 +1608,9 @@ class Scheduler:
     def _drain_daemon(self, daemon: DaemonHandle):
         try:
             while daemon.conn.poll():
-                msg = serialization.loads(daemon.conn.recv_bytes())
-                self._on_daemon_message(daemon, msg)
+                msg = _decode(daemon.conn.recv_bytes(), "scheduler <- daemon")
+                if msg is not None:
+                    self._on_daemon_message(daemon, msg)
         except (EOFError, OSError):
             self._on_daemon_death(daemon)
 
@@ -1638,8 +1665,9 @@ class Scheduler:
     def _drain_driver(self, dh: DriverHandle):
         try:
             while dh.conn.poll():
-                msg = serialization.loads(dh.conn.recv_bytes())
-                self._on_driver_message(dh, msg)
+                msg = _decode(dh.conn.recv_bytes(), "scheduler <- driver")
+                if msg is not None:
+                    self._on_driver_message(dh, msg)
         except (EOFError, OSError):
             self._on_driver_death(dh)
 

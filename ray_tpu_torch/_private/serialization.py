@@ -21,6 +21,7 @@ from typing import Any, Callable, List
 import cloudpickle
 
 from ray_tpu_torch._private import wire
+from ray_tpu_torch.exceptions import FrameTooLargeError
 
 
 @dataclass
@@ -153,7 +154,14 @@ def dumps(obj: Any) -> bytes:
     PicklingError), and objects it pickles BY REFERENCE into `__main__` (a
     worker's __main__ is not the driver's script, so those would
     unpickle-fail remotely; the byte-scan is cheap and false positives
-    merely lose the fast path)."""
+    merely lose the fast path). A message over ``wire_max_frame_bytes``
+    raises FrameTooLargeError here, in the sender: the frame never leaves."""
+    data = _dumps(obj)
+    check_frame(len(data), "a control-plane message")
+    return data
+
+
+def _dumps(obj: Any) -> bytes:
     if type(obj) is tuple and obj and type(obj[0]) is str and wire.send_enabled():
         data = wire.encode(obj)
         if data is not None:
@@ -171,3 +179,48 @@ def loads(data: bytes) -> Any:
     if data[:1] == wire.MAGIC:
         return wire.decode(data)
     return pickle.loads(data)
+
+
+# Room a message's own fields take in its frame beside one inline value.
+FRAME_HEADROOM = 64 * 1024
+
+
+def check_frame(nbytes: int, what: str, headroom: int = 0) -> None:
+    """Raise FrameTooLargeError when ``nbytes`` of ``what``, plus ``headroom``
+    for the message around it, cannot ride one control-plane frame
+    (``wire_max_frame_bytes``)."""
+    limit = wire.max_frame_bytes()
+    if nbytes + headroom > limit:
+        room = f" less {headroom} for the message around it" if headroom else ""
+        raise FrameTooLargeError(
+            f"{what} takes {nbytes} bytes, over wire_max_frame_bytes={limit}{room}; "
+            "pass large data as arrays or tensors (they travel out of band) or "
+            "raise the limit (RAY_TPU_TORCH_wire_max_frame_bytes)")
+
+
+def frames(msg: Any) -> List[bytes]:
+    """The frames that carry ``msg``: one, or, for a ("batch", msgs) frame over
+    the limit, one per message. A message over the limit inside a batch is
+    reported and dropped (its sender has moved on); a lone one raises
+    FrameTooLargeError in the caller."""
+    try:
+        return [dumps(msg)]
+    except FrameTooLargeError:
+        if not (type(msg) is tuple and len(msg) == 2 and msg[0] == "batch"):
+            raise
+    out = []
+    for m in msg[1]:
+        try:
+            out.append(dumps(m))
+        except FrameTooLargeError as e:
+            report_dropped_frame("send", e)
+    return out
+
+
+def report_dropped_frame(where: str, err: Exception) -> None:
+    """One line on stderr (a worker's log) for a frame that was not sent or
+    not decoded; the connection stays up."""
+    import sys
+
+    print(f"ray_tpu_torch: {where}: frame dropped: {type(err).__name__}: {err}",
+          file=sys.stderr, flush=True)

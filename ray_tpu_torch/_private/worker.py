@@ -1164,6 +1164,18 @@ def _serialize_arg_entries(
             oid = global_worker.next_put_id()
             meta = store.put(oid, a, cfg.max_direct_call_object_size)
             kwentries[k] = ("meta", meta)
+    metas = [m for kind, m in entries + list(kwentries.values()) if kind == "meta"]
+    inline = sum(m.size for m in metas if m.segment is None)
+    if inline > cfg.max_direct_call_object_size:
+        # The inline args ride together in the task's frame.
+        try:
+            serialization.check_frame(inline, "the task's inline arguments",
+                                      serialization.FRAME_HEADROOM)
+        except exceptions.FrameTooLargeError:
+            for m in metas:
+                if m.segment is not None:
+                    store.free(m)
+            raise
     return entries, kwentries
 
 

@@ -26,6 +26,7 @@ from ray_tpu_torch._private.config import Config, set_config
 from ray_tpu_torch._private.ids import ActorID, ObjectID, TaskID, WorkerID
 from ray_tpu_torch._private.object_store import LocalObjectStore, ObjectMeta
 from ray_tpu_torch._private.protocol import ExecRequest
+from ray_tpu_torch._private.wire import WireDecodeError
 
 
 @dataclass
@@ -298,7 +299,12 @@ class WorkerConnection:
                     "conn.recv", lambda: _abrupt_close(self.conn)
                 ) == "drop":
                     continue  # frame discarded by the failpoint
-                msg = serialization.loads(data)
+                try:
+                    msg = serialization.loads(data)
+                except WireDecodeError as e:
+                    # The frame was read whole: drop it, keep reading.
+                    serialization.report_dropped_frame("reader", e)
+                    continue
                 if msg[0] == "batch":
                     # Coalesced frame: process every contained message before
                     # returning to the pipe (one wakeup per burst).

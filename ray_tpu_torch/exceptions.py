@@ -60,6 +60,13 @@ class RayTaskError(RayTpuError):
             return self
 
 
+class FrameTooLargeError(RayTpuError, ValueError):
+    """A value or control-plane message whose frame would exceed
+    ``wire_max_frame_bytes``. Raised in the sender (the ``.remote()`` call,
+    the ``put``, or, for a task's return value, at the caller's ``get``), so
+    the frame never leaves and the runtime goes on."""
+
+
 class WorkerCrashedError(RayTpuError):
     """The worker process executing the task died unexpectedly."""
 

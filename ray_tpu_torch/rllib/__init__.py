@@ -5,15 +5,30 @@ The counterpart of ``ray_tpu/rllib``; reference: `rllib/` —
 (`evaluation/rollout_worker.py:166`) and the Learner stack
 (`core/learner/learner.py:100`, `learner_group.py:48`, `core/rl_module/`).
 
-PPO and DQN (with its double-Q, n-step, dueling, C51 and prioritized-replay
-knobs) train through ``Algorithm.train()``: env runners sample on CPU actors,
-the ``TorchLearner`` updates on the GPU. Multi-agent training, offline data
-and the other algorithms are not ported yet (ROADMAP.md Queue 1 item 7).
+Single-agent RLlib trains through ``Algorithm.train()``: env runners sample
+on CPU actors and the ``TorchLearner`` updates on the GPU. On-policy: PPO,
+A2C, PG, IMPALA and APPO (V-trace inside the loss). Online off-policy: DQN
+(with its double-Q, n-step, dueling, C51 and prioritized-replay knobs), SAC,
+TD3/DDPG and Ape-X DQN (replay shards on CPU actors). Offline, from JSON
+input (``offline``): MARWIL, BC and CQL. Not ported yet: multi-agent training
+(``MultiAgentEnv``, ``make_multi_agent``, ``MultiAgentEnvRunner``; ROADMAP.md
+Queue 1 item 7d) and the Data-backed ``offline.DatasetReader`` (item 11).
+The JAX package's ``JaxLearner`` is ``TorchLearner`` here.
 """
 
+from ray_tpu_torch.rllib.algorithms.a2c import A2C, A2CConfig
 from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rllib.algorithms.apex_dqn import ApexDQN, ApexDQNConfig
+from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig
+from ray_tpu_torch.rllib.algorithms.bc import BC, BCConfig
+from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig
+from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig, Impala, ImpalaConfig
+from ray_tpu_torch.rllib.algorithms.marwil import MARWIL, MARWILConfig
+from ray_tpu_torch.rllib.algorithms.pg import PG, PGConfig
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig
+from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig
+from ray_tpu_torch.rllib.algorithms.td3 import TD3, DDPGConfig, TD3Config
 from ray_tpu_torch.rllib.callbacks import DefaultCallbacks, Episode
 from ray_tpu_torch.rllib.connectors import (
     ClipActions,
@@ -33,7 +48,6 @@ from ray_tpu_torch.rllib.core.learner_group import LearnerGroup
 from ray_tpu_torch.rllib.core.rl_module import (
     DeterministicContinuousModule,
     MLPModule,
-    QMLPModule,
     RLModule,
     SquashedGaussianModule,
 )
@@ -43,12 +57,23 @@ from ray_tpu_torch.rllib.utils.exploration import Exploration, build_exploration
 from ray_tpu_torch.rllib.utils.replay_buffers import PrioritizedReplayBuffer, ReplayBuffer
 
 __all__ = [
+    "A2C",
+    "A2CConfig",
+    "APPO",
+    "APPOConfig",
     "Algorithm",
     "AlgorithmConfig",
+    "ApexDQN",
+    "ApexDQNConfig",
+    "BC",
+    "BCConfig",
+    "CQL",
+    "CQLConfig",
     "ClipActions",
     "ClipObs",
     "Connector",
     "ConnectorPipeline",
+    "DDPGConfig",
     "DQN",
     "DQNConfig",
     "DefaultCallbacks",
@@ -59,18 +84,29 @@ __all__ = [
     "Episode",
     "Exploration",
     "FlattenObs",
+    "IMPALA",
+    "IMPALAConfig",
+    "Impala",
+    "ImpalaConfig",
     "LearnerGroup",
+    "MARWIL",
+    "MARWILConfig",
     "MLPModule",
     "MODEL_DEFAULTS",
     "ModelCatalog",
     "NormalizeObs",
+    "PG",
+    "PGConfig",
     "PPO",
     "PPOConfig",
     "PrioritizedReplayBuffer",
-    "QMLPModule",
     "RLModule",
     "ReplayBuffer",
+    "SAC",
+    "SACConfig",
     "SquashedGaussianModule",
+    "TD3",
+    "TD3Config",
     "TorchLearner",
     "UnsquashActions",
     "build_exploration",

@@ -10,8 +10,9 @@ learner update(s) on the GPU -> aggregated metrics.
 The learner's device has one switch, ``.learners(num_gpus_per_learner=)``:
 the default 1 puts a local learner's params on the GPU (and raises when
 there is none), and each remote learner holds that share of the ``GPU``
-resource; 0 runs them on the CPU. Single-agent and online only: the policy
-map and offline data raise until they are ported.
+resource; 0 runs them on the CPU. Offline algorithms (MARWIL, BC, CQL) read
+``config.offline_data(input_=)`` and build no env runner for training.
+Single-agent only: the policy map raises until it is ported.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from ray_tpu_torch._private.accelerators.gpu import default_device
 from ray_tpu_torch.rllib.env.env_runner import is_discrete
 
 _MULTI_AGENT = "multi-agent training is not ported yet: ROADMAP.md Queue 1 item 7d"
-_OFFLINE = "offline data is not ported yet: ROADMAP.md Queue 1 item 7c"
+_DATASET = ("a Dataset as offline input (DatasetReader) is not ported yet: ROADMAP.md "
+            "Queue 1 item 11 (Data)")
 # What each env-runner actor holds: one CPU, and its forward runs one thread.
 RUNNER_CPUS = 1
 
@@ -50,6 +52,10 @@ class AlgorithmConfig:
         self.num_gpus_per_learner = 1.0
         self.model: Dict[str, Any] = {"hiddens": (64, 64)}
         self.framework_str = "torch"
+        # Offline data (reference `.offline_data(input_=...)`): a path/glob/
+        # list of JSON-lines files, an InputReader, or a zero-arg callable
+        # returning an InputReader.
+        self.input_: Any = None
         # Connector specs (reference `rllib/connectors/`): a Connector
         # instance, a factory callable, or a list of either — built fresh
         # inside each runner actor.
@@ -178,8 +184,29 @@ class AlgorithmConfig:
     def multi_agent(self, **kwargs) -> "AlgorithmConfig":
         raise NotImplementedError(_MULTI_AGENT)
 
-    def offline_data(self, **kwargs) -> "AlgorithmConfig":
-        raise NotImplementedError(_OFFLINE)
+    def offline_data(self, *, input_=None) -> "AlgorithmConfig":
+        """Configure the offline input source (reference:
+        `AlgorithmConfig.offline_data`). See `input_` in `__init__`."""
+        if input_ is not None:
+            self.input_ = input_
+        return self
+
+    def build_input_reader(self, batch_size: int, seed: int = 0):
+        """Resolve `input_` into an InputReader (the offline plugin seam)."""
+        from ray_tpu_torch.rllib.offline import InputReader, JsonReader
+
+        src = self.input_
+        if src is None:
+            raise ValueError("offline training requires config.offline_data(input_=...)")
+        if isinstance(src, InputReader):
+            return src
+        if isinstance(src, (str, list, tuple)):
+            return JsonReader(src, batch_size=batch_size, seed=seed)
+        if hasattr(src, "iter_batches"):  # a Dataset, known by its interface
+            raise NotImplementedError(_DATASET)
+        if callable(src):
+            return src()
+        raise TypeError(f"unsupported offline input source: {type(src)}")
 
     def framework(self, framework: str) -> "AlgorithmConfig":
         if framework != "torch":
@@ -263,7 +290,12 @@ class Algorithm:
             extra_update_fn=self.make_extra_update(),
             num_gpus_per_learner=config.num_gpus_per_learner,
         )
-        self.env_runners: List[Any] = self._make_env_runners(
+        if not self._needs_env_runners:
+            # Offline algorithms train from an InputReader; the env exists
+            # only for spaces and evaluation.
+            self.env_runners: List[Any] = []
+            return
+        self.env_runners = self._make_env_runners(
             creator, config.num_env_runners, seed_base=config.seed
         )
 
@@ -300,6 +332,9 @@ class Algorithm:
             return None
         sched = self.exploration.schedule(env_steps)
         return sched or None
+
+    # Offline algorithms (MARWIL, BC, CQL) set False: no sampling actors.
+    _needs_env_runners = True
 
     def _init_multi_agent(self, creator) -> None:
         raise NotImplementedError(_MULTI_AGENT)

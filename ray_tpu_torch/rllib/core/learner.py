@@ -154,7 +154,11 @@ class TorchLearner:
             loss, aux = self._loss_fn(self.module, self.params, *args)
         finally:
             _DATA_GROUP.reset(token)
-        grads = list(torch.autograd.grad(loss, tree_leaves(self.params)))
+        leaves = tree_leaves(self.params)
+        # A leaf the loss never reads (PG's value tower) gets a zero
+        # gradient, as under jax.grad.
+        grads = [torch.zeros_like(p) if g is None else g for p, g in
+                 zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
         aux = dict(aux, total_loss=loss)
         if self._group is not None:
             grads, aux = self._average(grads), self._global_aux(aux)

@@ -186,8 +186,18 @@ class _BoxActions:
         self.scale = (self.act_high - self.act_low) / 2.0
 
     def _t(self, name, like):
-        """Bound array ``name`` as a tensor beside ``like``."""
-        return torch.as_tensor(getattr(self, name), device=like.device)
+        """Bound array ``name`` as a tensor beside ``like``, made once per
+        device: a copy from host memory inside a loss would wait for every
+        kernel queued before it."""
+        cache = self.__dict__.setdefault("_bounds_on", {})
+        key = (name, like.device)
+        if key not in cache:
+            cache[key] = torch.tensor(getattr(self, name), device=like.device)
+        return cache[key]
+
+    def __getstate__(self):
+        # The per-device bound tensors stay in the process that made them.
+        return {k: v for k, v in self.__dict__.items() if k != "_bounds_on"}
 
     def q_values(self, q_params, obs, action_env):
         """Q(s, a) for one tower; actions normalize back to (-1, 1) so tower

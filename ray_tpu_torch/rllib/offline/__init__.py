@@ -1,0 +1,15 @@
+"""ray_tpu_torch.rllib.offline: offline-RL data input/output.
+
+The counterpart of ``ray_tpu/rllib/offline``; reference: `rllib/offline/` —
+`InputReader` (`input_reader.py`) and the JSON readers/writers
+(`json_reader.py`, `json_writer.py`). Batches are dicts of numpy columns over
+transitions; JSON files hold one episode (or fragment) per line, in the JAX
+package's format. The Data-backed `DatasetReader` is not ported yet
+(ROADMAP.md Queue 1 item 11).
+"""
+
+from ray_tpu_torch.rllib.offline.input_reader import InputReader
+from ray_tpu_torch.rllib.offline.json_reader import JsonReader
+from ray_tpu_torch.rllib.offline.json_writer import JsonWriter
+
+__all__ = ["InputReader", "JsonReader", "JsonWriter"]

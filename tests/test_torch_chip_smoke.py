@@ -198,11 +198,88 @@ def test_rl_learner_check_runs_on_the_cpu():
         lines = chip_smoke.phase_rl_learner_check("cpu", device="cpu")
     finally:
         torch.set_num_threads(threads)
-    assert [line["loss"] for line in lines] == ["ppo", "dqn", "c51"]
-    assert [line["rows"] for line in lines] == [128, 64, 64]
+    assert [line["loss"] for line in lines] == list(chip_smoke.RL_CHECK_KINDS) == [
+        "ppo", "dqn", "c51", "a2c", "pg", "impala", "appo", "marwil", "sac", "td3", "cql"]
+    # IMPALA's and APPO's batches are env-major: 16 envs of 64 steps.
+    assert [line["rows"] for line in lines] == [128, 64, 64, 512, 512, 16, 16, 512, 128, 128, 256]
+    assert lines[5]["batch_shape"] == [16, 64]
     for line in lines:
         assert line["updates"] == chip_smoke.RL_UPDATES and line["param_max_abs_err"] == 0
         assert set(line["max_rel_err_per_key"]) >= {"total_loss", "grad_norm"}
+
+
+@pytest.fixture
+def rl_on_the_cpu(monkeypatch):
+    """The RL phases' learners on the CPU (as ``num_gpus_per_learner=0``
+    gives), one torch thread, and a runtime of 4 CPUs; after the test, the
+    runtime shut down and the workers the phases reported checked gone, as
+    rl_shutdown checks them."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib.algorithms import algorithm
+    from ray_tpu_torch.rllib.core import learner_group
+
+    monkeypatch.setattr(algorithm, "default_device", lambda: torch.device("cpu"))
+    monkeypatch.setattr(learner_group, "learner_device", lambda num_gpus: "cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    ray_tpu_torch.init(num_cpus=4)
+    session_dir = ray_tpu_torch._private.worker.global_worker.session_dir
+    lines = []
+    try:
+        yield lines
+    finally:
+        ray_tpu_torch.shutdown()
+        torch.set_num_threads(threads)
+    pids = {pid for line in lines for pid in line["worker_pids"]}
+    assert pids and not os.path.exists(session_dir)
+    deadline = time.time() + 10
+    while any(chip_smoke.pid_alive(p) for p in pids) and time.time() < deadline:
+        time.sleep(0.1)
+    assert not [p for p in pids if chip_smoke.pid_alive(p)]
+
+
+RL_LINE_KEYS = {"phase", "placement", "iterations", "returns", "sample_s", "learn_s",
+                "env_steps_per_s", "updates_per_s", "per_iteration", "worker_pids", "wall_s",
+                "card"}
+
+
+def test_rl_onpolicy_and_continuous_run_on_the_cpu(rl_on_the_cpu):
+    # The phases at one iteration each (two for SAC and TD3: the first only
+    # fills their buffers past learning_starts), bars off: lines and checks.
+    lines = chip_smoke.phase_rl_onpolicy("cpu", device="cpu", max_iters=1, bars=False)
+    lines += chip_smoke.phase_rl_continuous("cpu", device="cpu", max_iters=2, bars=False)
+    rl_on_the_cpu += lines
+    assert [(x["phase"], x["algo"]) for x in lines] == [
+        ("rl_onpolicy", "a2c"), ("rl_onpolicy", "pg"), ("rl_onpolicy", "impala"),
+        ("rl_onpolicy", "appo"), ("rl_continuous", "sac"), ("rl_continuous", "td3")]
+    for line in lines:
+        assert RL_LINE_KEYS <= set(line)
+        assert line["iterations"] == (2 if line["phase"] == "rl_continuous" else 1)
+        assert line["placement"]["learners"][0]["device"] == "cpu"
+        assert [r["cuda_visible_devices"] for r in line["placement"]["runners"]] == ["", ""]
+    assert [x["env_steps_per_iteration"] for x in lines] == [512, 8192, 1024, 1024, 256, 256]
+    assert "mean_rho" in lines[2]["per_iteration"][0]
+    assert {"mean_is_ratio", "kl_coeff"} <= set(lines[3]["per_iteration"][0])
+    assert lines[4]["per_iteration"][1]["alpha"] > 0
+
+
+def test_rl_apex_and_offline_run_on_the_cpu(rl_on_the_cpu, monkeypatch):
+    from ray_tpu_torch.models import params_to_numpy
+    from ray_tpu_torch.rllib import MLPModule
+
+    apex = chip_smoke.phase_rl_apex("cpu", device="cpu", iters=3)
+    assert RL_LINE_KEYS <= set(apex) and apex["iterations"] == 3
+    assert [s["cuda_visible_devices"] for s in apex["placement"]["shards"]] == ["", ""]
+    assert apex["worker_epsilons"] == apex["epsilon_schedule"]
+    monkeypatch.setattr(chip_smoke, "OFFLINE_EPISODES", 4)
+    weights = params_to_numpy(MLPModule(4, 2).init(0, device="cpu"))
+    lines = chip_smoke.phase_rl_offline("cpu", weights, device="cpu", iters=1, bars=False)
+    rl_on_the_cpu += [apex] + lines
+    assert [x["algo"] for x in lines] == ["bc", "marwil", "cql"]
+    for line in lines:
+        assert RL_LINE_KEYS <= set(line) and line["placement"]["runners"] == []
+        assert [r["cuda_visible_devices"] for r in line["placement"]["evaluation_runners"]] == [""]
+        assert line["evaluation_return_mean"] is not None and line["env_steps_per_s"] is None
 
 
 def test_rl_iteration_reads_a_result():

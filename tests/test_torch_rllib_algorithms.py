@@ -224,11 +224,27 @@ def test_two_learners_keep_equal_weights(port):
 def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7d"):
         PPOConfig().multi_agent(policies=["a"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7c"):
-        PPOConfig().offline_data(input_="unused")
+    # Offline input is ported, but not from a Data Dataset (known by its
+    # iter_batches): that waits for item 11.
+    dataset = type("Dataset", (), {"iter_batches": lambda self, **kw: iter(())})()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+        PPOConfig().offline_data(input_=dataset).build_input_reader(batch_size=8)
     with pytest.raises(ValueError, match="torch"):
         PPOConfig().framework("jax")
     from ray_tpu_torch.rllib.algorithms.dqn import replay_ma_training_step
 
     with pytest.raises(NotImplementedError, match="item 7d"):
         replay_ma_training_step(None)
+
+
+def test_exports_are_the_jax_packages_less_multi_agent():
+    import ray_tpu.rllib as jax_rllib
+    import ray_tpu_torch.rllib as rllib
+
+    multi_agent = {"MultiAgentEnv", "make_multi_agent", "MultiAgentEnvRunner"}  # item 7d
+    want = set(jax_rllib.__all__) - multi_agent - {"JaxLearner"} | {"TorchLearner"}
+    assert set(rllib.__all__) == want and len(rllib.__all__) == len(want)
+    assert all(hasattr(rllib, name) for name in rllib.__all__)
+    import ray_tpu_torch.rllib.offline as offline
+
+    assert offline.__all__ == ["InputReader", "JsonReader", "JsonWriter"]  # no DatasetReader

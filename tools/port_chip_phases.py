@@ -5,8 +5,12 @@ checkout or from another one (e.g. a parent commit unpacked with
 
     python3 tools/port_chip_phases.py [--checkout DIR] PHASE [PHASE ...]
 
-PHASE is ``resnet50`` (ResNet-50 at B 128), ``rl_learner_check``, ``rl``
-(every RLlib phase on one runtime), ``mesh`` (``collective_nccl``, then
+PHASE is ``resnet50`` (ResNet-50 at B 128), ``rl_learner_check`` (every RL
+loss, card against CPU), ``rl`` (every RLlib phase: the learner check and the
+mesh learner, then on one runtime PPO, DQN, two learners, A2C, PG, IMPALA and
+APPO (``rl_onpolicy``), SAC and TD3 (``rl_continuous``), Ape-X DQN
+(``rl_apex``), BC, MARWIL and CQL from JSON (``rl_offline``), and the
+shutdown check), ``mesh`` (``collective_nccl``, then
 ``mesh_gang`` against the main path's first step, taken here) or
 ``pipe_ctx`` (``ring_check``, then ``pipe_ctx_gang`` against the same) or
 ``mesh_rest`` (``moe``, then ``expert_tp_gang`` against it,
