@@ -7,8 +7,12 @@ can pass checkpoints around without caring how they were produced.
 GPU behavior: torch tensors inside dict checkpoints (in nested dicts, lists
 and tuples) are copied to CPU tensors on save, so a checkpoint never pins
 device memory, is picklable across processes, and keeps its values when the
-caller updates the originals in place. Saving a sharded tree
-(`save_pytree`) is not ported yet (ROADMAP.md Queue 1 item 6).
+caller updates the originals in place. A sharded leaf (a ``DTensor``) is
+gathered whole first, as the JAX package fetches a sharded ``jax.Array``.
+
+`save_pytree`/`load_pytree` keep a tree as ``<path>/pytree.pkl``, the JAX
+package's portable format (it writes orbax's ``pytree/`` directory when orbax
+is importable, which this package does not read).
 """
 
 from __future__ import annotations
@@ -30,14 +34,21 @@ def _tree_to_host(obj: Any) -> Any:
     """Copy the torch tensors in a nested dict / list / tuple to CPU tensors
     (detached, and copied even where they are on the CPU, so a later in-place
     update of the original leaves the result as it was); everything else is
-    returned as it is."""
+    returned as it is.
+
+    A ``DTensor`` leaf is gathered whole with ``full_tensor()`` first (a
+    ``.to("cpu")`` would keep it a DTensor of this rank's shard). That gather
+    is a collective: every rank of the leaf's mesh must make the same call."""
     if isinstance(obj, dict):
         return type(obj)((k, _tree_to_host(v)) for k, v in obj.items())
     if isinstance(obj, (list, tuple)) and not hasattr(obj, "_fields"):
         return type(obj)(_tree_to_host(v) for v in obj)
     if (type(obj).__module__ or "").startswith("torch"):
         import torch
+        from torch.distributed.tensor import DTensor
 
+        if isinstance(obj, DTensor):
+            obj = obj.full_tensor()
         if isinstance(obj, torch.Tensor):
             return obj.detach().to("cpu", copy=True)
     return obj
@@ -184,17 +195,32 @@ class Checkpoint:
 
 
 # ----------------------------------------------------------------- sharded trees
+_PYTREE_FILE = "pytree.pkl"
+
+
 def save_pytree(tree: Any, path: str) -> None:
-    """Save a (possibly sharded) tree under `path`: not ported yet."""
-    raise NotImplementedError(
-        "save_pytree (a torch checkpoint of sharded state) is not ported yet: "
-        "ROADMAP.md Queue 1 item 6"
-    )
+    """Save a (possibly sharded) tree under `path` as ``pytree.pkl``: its
+    tensors pickled as CPU tensors (`_tree_to_host`: a DTensor leaf is
+    gathered whole, a collective every rank of its mesh must enter, so on a
+    mesh every rank calls this; give each rank its own `path` or let one
+    write), everything else as it is."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, _PYTREE_FILE), "wb") as fh:
+        pickle.dump(_tree_to_host(tree), fh)
 
 
 def load_pytree(path: str) -> Any:
-    """Load a tree saved by `save_pytree`: not ported yet."""
-    raise NotImplementedError(
-        "load_pytree (a torch checkpoint of sharded state) is not ported yet: "
-        "ROADMAP.md Queue 1 item 6"
-    )
+    """The tree `save_pytree` wrote under `path`, with CPU tensor leaves; a
+    ``pytree.pkl`` the JAX package wrote (its fallback when orbax is absent)
+    loads with its numpy leaves, ready for ``models.convert.params_from_numpy``."""
+    pkl = os.path.join(path, _PYTREE_FILE)
+    if os.path.exists(pkl):
+        with open(pkl, "rb") as fh:
+            return pickle.load(fh)
+    if os.path.isdir(os.path.join(path, "pytree")):
+        raise ValueError(
+            f"{path} holds an orbax checkpoint (pytree/), which the PyTorch port does not "
+            "read: save the tree with the JAX package where orbax is not installed (its "
+            "portable pytree.pkl), or load it there and save it again"
+        )
+    raise FileNotFoundError(f"no {_PYTREE_FILE} under {path}")

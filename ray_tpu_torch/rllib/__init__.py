@@ -10,10 +10,11 @@ on CPU actors and the ``TorchLearner`` updates on the GPU. On-policy: PPO,
 A2C, PG, IMPALA and APPO (V-trace inside the loss). Online off-policy: DQN
 (with its double-Q, n-step, dueling, C51 and prioritized-replay knobs), SAC,
 TD3/DDPG and Ape-X DQN (replay shards on CPU actors). Offline, from JSON
-input (``offline``): MARWIL, BC and CQL. Not ported yet: multi-agent training
-(``MultiAgentEnv``, ``make_multi_agent``, ``MultiAgentEnvRunner``; ROADMAP.md
-Queue 1 item 7d) and the Data-backed ``offline.DatasetReader`` (item 11).
-The JAX package's ``JaxLearner`` is ``TorchLearner`` here.
+input (``offline``): MARWIL, BC and CQL. Multi-agent: ``MultiAgentEnv`` and
+``make_multi_agent``, and policy maps (``.multi_agent()``) for PPO, DQN and
+SAC, one learner per policy on the GPU and ``MultiAgentEnvRunner`` CPU actors.
+Not ported yet: the Data-backed ``offline.DatasetReader`` (ROADMAP.md Queue 1
+item 11). The JAX package's ``JaxLearner`` is ``TorchLearner`` here.
 """
 
 from ray_tpu_torch.rllib.algorithms.a2c import A2C, A2CConfig
@@ -52,6 +53,8 @@ from ray_tpu_torch.rllib.core.rl_module import (
     SquashedGaussianModule,
 )
 from ray_tpu_torch.rllib.env.env_runner import EnvRunner
+from ray_tpu_torch.rllib.env.multi_agent_env import MultiAgentEnv, make_multi_agent
+from ray_tpu_torch.rllib.env.multi_agent_env_runner import MultiAgentEnvRunner
 from ray_tpu_torch.rllib.models import MODEL_DEFAULTS, ModelCatalog, register_custom_module
 from ray_tpu_torch.rllib.utils.exploration import Exploration, build_exploration
 from ray_tpu_torch.rllib.utils.replay_buffers import PrioritizedReplayBuffer, ReplayBuffer
@@ -94,6 +97,8 @@ __all__ = [
     "MLPModule",
     "MODEL_DEFAULTS",
     "ModelCatalog",
+    "MultiAgentEnv",
+    "MultiAgentEnvRunner",
     "NormalizeObs",
     "PG",
     "PGConfig",
@@ -110,5 +115,6 @@ __all__ = [
     "TorchLearner",
     "UnsquashActions",
     "build_exploration",
+    "make_multi_agent",
     "register_custom_module",
 ]

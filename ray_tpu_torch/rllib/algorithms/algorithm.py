@@ -12,7 +12,13 @@ the default 1 puts a local learner's params on the GPU (and raises when
 there is none), and each remote learner holds that share of the ``GPU``
 resource; 0 runs them on the CPU. Offline algorithms (MARWIL, BC, CQL) read
 ``config.offline_data(input_=)`` and build no env runner for training.
-Single-agent only: the policy map raises until it is ported.
+
+``.multi_agent(policies=, policy_mapping_fn=)`` trains a policy map (PPO, DQN
+and SAC): one module and one LearnerGroup per policy, each on the GPU as
+above, and ``MultiAgentEnvRunner`` CPU actors routing each agent's obs to its
+policy. Remote learners of all the policies must fit the cluster's ``GPU``
+together (``build()`` raises otherwise: the runtime would wait forever to
+place the ones that do not).
 """
 
 from __future__ import annotations
@@ -29,7 +35,6 @@ import numpy as np
 from ray_tpu_torch._private.accelerators.gpu import default_device
 from ray_tpu_torch.rllib.env.env_runner import is_discrete
 
-_MULTI_AGENT = "multi-agent training is not ported yet: ROADMAP.md Queue 1 item 7d"
 _DATASET = ("a Dataset as offline input (DatasetReader) is not ported yet: ROADMAP.md "
             "Queue 1 item 11 (Data)")
 # What each env-runner actor holds: one CPU, and its forward runs one thread.
@@ -52,6 +57,12 @@ class AlgorithmConfig:
         self.num_gpus_per_learner = 1.0
         self.model: Dict[str, Any] = {"hiddens": (64, 64)}
         self.framework_str = "torch"
+        # Multi-agent (reference `algorithm_config.py` `.multi_agent()`):
+        # policies maps policy_id -> None (spaces inferred from the env's
+        # per-agent dicts via policy_mapping_fn). Empty = single-agent.
+        self.policies: Dict[str, Any] = {}
+        self.policy_mapping_fn: Optional[Callable[[str], str]] = None
+        self.policies_to_train: Optional[List[str]] = None
         # Offline data (reference `.offline_data(input_=...)`): a path/glob/
         # list of JSON-lines files, an InputReader, or a zero-arg callable
         # returning an InputReader.
@@ -181,8 +192,34 @@ class AlgorithmConfig:
         self.callbacks_class = callbacks_class
         return self
 
-    def multi_agent(self, **kwargs) -> "AlgorithmConfig":
-        raise NotImplementedError(_MULTI_AGENT)
+    def multi_agent(
+        self,
+        *,
+        policies=None,
+        policy_mapping_fn: Optional[Callable[[str], str]] = None,
+        policies_to_train: Optional[List[str]] = None,
+    ) -> "AlgorithmConfig":
+        """Configure the policy map (reference: `AlgorithmConfig.multi_agent`).
+
+        `policies` is a dict policy_id -> None or an iterable of policy ids;
+        module specs are inferred from the MultiAgentEnv's per-agent spaces.
+        `policy_mapping_fn(agent_id) -> policy_id` routes agents; default maps
+        every agent to the sole policy (valid only with one policy).
+        """
+        if policies is not None:
+            if isinstance(policies, dict):
+                self.policies = dict(policies)
+            else:
+                self.policies = {pid: None for pid in policies}
+        if policy_mapping_fn is not None:
+            self.policy_mapping_fn = policy_mapping_fn
+        if policies_to_train is not None:
+            self.policies_to_train = list(policies_to_train)
+        return self
+
+    @property
+    def is_multi_agent(self) -> bool:
+        return bool(self.policies)
 
     def offline_data(self, *, input_=None) -> "AlgorithmConfig":
         """Configure the offline input source (reference:
@@ -232,14 +269,16 @@ class AlgorithmConfig:
         if callable(env):
             return lambda: env(cfg) if cfg else env()
         if isinstance(env, str):
-
-            def make():
-                import gymnasium as gym
-
-                return gym.make(env, **cfg)
-
-            return make
+            return lambda: gym_make(env, **cfg)
         raise ValueError("config.environment(env=...) is required")
+
+
+def gym_make(env_id: str, **kwargs):
+    """``gymnasium.make(env_id, **kwargs)``: the port's one gymnasium import,
+    reached only when an env is made from a string id."""
+    import gymnasium as gym
+
+    return gym.make(env_id, **kwargs)
 
 
 class Algorithm:
@@ -272,6 +311,9 @@ class Algorithm:
         # values are pushed to runners each iteration (`exploration_push`).
         self.exploration = build_exploration(config.exploration_config)
         creator = config.env_creator()
+        if config.is_multi_agent:
+            self._init_multi_agent(creator)
+            return
         probe = creator()
         obs_space, act_space = probe.observation_space, probe.action_space
         probe.close()
@@ -333,11 +375,136 @@ class Algorithm:
         sched = self.exploration.schedule(env_steps)
         return sched or None
 
+    # ------------------------------------------------------------- multi-agent
+    # Whether this algorithm supports policy maps (PPO, DQN and SAC opt in),
+    # as in the JAX package.
+    _supports_multi_agent = False
     # Offline algorithms (MARWIL, BC, CQL) set False: no sampling actors.
     _needs_env_runners = True
 
     def _init_multi_agent(self, creator) -> None:
-        raise NotImplementedError(_MULTI_AGENT)
+        import ray_tpu_torch
+        from ray_tpu_torch.rllib.core.learner_group import LearnerGroup
+
+        config = self.config
+        if not self._supports_multi_agent:
+            raise ValueError(
+                f"{type(self).__name__} does not support multi-agent training"
+            )
+        if config.exploration_config is not None:
+            # MultiAgentEnvRunner routes exploration through per-policy
+            # module forwards (epsilon push only); silently ignoring a
+            # configured strategy would misreport what trained.
+            raise ValueError(
+                "exploration_config strategies are single-agent only; "
+                "multi-agent policies use their modules' built-in exploration"
+            )
+        mapping = config.policy_mapping_fn
+        if mapping is None:
+            if len(config.policies) != 1:
+                raise ValueError(
+                    "policy_mapping_fn is required with more than one policy"
+                )
+            only = next(iter(config.policies))
+            mapping = lambda aid: only  # noqa: E731
+            config.policy_mapping_fn = mapping
+        probe = creator()
+        try:
+            obs_spaces, act_spaces = probe.observation_space, probe.action_space
+            if not isinstance(obs_spaces, dict):
+                raise ValueError(
+                    "multi-agent training requires a MultiAgentEnv with dict "
+                    "observation/action spaces (see make_multi_agent)"
+                )
+            # One representative agent per policy defines its module spec.
+            # Every agent must map INTO the policy map — an unmapped agent
+            # would die with a bare KeyError inside the runner actor later.
+            agent_of: Dict[str, str] = {}
+            for aid in obs_spaces:
+                pid = mapping(aid)
+                if pid not in config.policies:
+                    raise ValueError(
+                        f"policy_mapping_fn({aid!r}) -> {pid!r}, which is not "
+                        f"in policies {sorted(config.policies)}"
+                    )
+                agent_of.setdefault(pid, aid)
+            missing = set(config.policies) - set(agent_of)
+            if missing:
+                raise ValueError(
+                    f"no agent maps to policies {sorted(missing)}; check "
+                    "policy_mapping_fn against the env's agent ids"
+                )
+            self.modules: Dict[str, Any] = {}
+            for pid, aid in agent_of.items():
+                act_space = act_spaces[aid]
+                obs_dim = int(np.prod(obs_spaces[aid].shape))
+                if is_discrete(act_space):
+                    self.modules[pid] = self.make_module(obs_dim, int(act_space.n))
+                else:
+                    self.modules[pid] = self.make_module_continuous(obs_dim, act_space)
+        finally:
+            probe.close()
+        if config.num_learners > 0 and config.num_gpus_per_learner > 0:
+            # Every policy's group holds num_learners x num_gpus_per_learner
+            # of GPU; the runtime would wait forever to place what does not
+            # fit, so refuse it here.
+            asked = len(self.modules) * config.num_learners * config.num_gpus_per_learner
+            node_gpu = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+            if asked > node_gpu:
+                raise ValueError(
+                    f"{len(self.modules)} policies x {config.num_learners} learners x "
+                    f"{config.num_gpus_per_learner} GPU each ask for {asked} GPU, but the "
+                    f"cluster has {node_gpu}: lower num_gpus_per_learner"
+                )
+        self.module = None
+        self.learner_group = None
+        self.learner_groups: Dict[str, LearnerGroup] = {
+            pid: LearnerGroup(
+                mod,
+                self.make_loss(),
+                num_learners=config.num_learners,
+                learning_rate=config.lr,
+                optimizer=self.make_optimizer(),
+                seed=config.seed + 31 * i,
+                extra_update_fn=self.make_extra_update(),
+                num_gpus_per_learner=config.num_gpus_per_learner,
+            )
+            for i, (pid, mod) in enumerate(self.modules.items())
+        }
+        self.env_runners = self._make_multi_agent_runners(
+            creator, config.num_env_runners, seed_base=config.seed
+        )
+
+    def _make_multi_agent_runners(self, creator, n: int, seed_base: int) -> List[Any]:
+        import ray_tpu_torch
+        from ray_tpu_torch.rllib.env.multi_agent_env_runner import MultiAgentEnvRunner
+
+        config = self.config
+        runner_cls = ray_tpu_torch.remote(MultiAgentEnvRunner)
+        return [
+            runner_cls.options(num_cpus=RUNNER_CPUS).remote(
+                creator,
+                self.modules,
+                config.policy_mapping_fn,
+                num_envs=config.num_envs_per_runner,
+                rollout_length=config.rollout_fragment_length,
+                seed=seed_base + 1000 * (i + 1),
+                gamma=config.gamma,
+                lambda_=getattr(config, "lambda_", 0.95),
+                default_explore=config.explore,
+                callbacks=config.callbacks_class,
+                num_cpus=RUNNER_CPUS,
+            )
+            for i in range(n)
+        ]
+
+    @property
+    def is_multi_agent(self) -> bool:
+        return self.config.is_multi_agent
+
+    def policy_weights(self) -> Dict[str, Any]:
+        """Every policy's weights, as numpy trees (what runners are sent)."""
+        return {pid: lg.get_weights() for pid, lg in self.learner_groups.items()}
 
     # -------------------------------------------------------------- interface
     # What the base module kind is for Discrete action spaces; value-based
@@ -441,10 +608,14 @@ class Algorithm:
         if getattr(self, "_eval_runners", None):
             return self._eval_runners
         config = self.config
-        self._eval_runners = self._make_env_runners(
-            config.env_creator(), max(1, config.evaluation_num_env_runners),
-            seed_base=config.seed + 555_000,
-        )
+        n = max(1, config.evaluation_num_env_runners)
+        if self.is_multi_agent:
+            # Seeds config.seed + 555_000 + 1000 * i, as the JAX package's.
+            self._eval_runners = self._make_multi_agent_runners(
+                config.env_creator(), n, seed_base=config.seed + 554_000)
+        else:
+            self._eval_runners = self._make_env_runners(
+                config.env_creator(), n, seed_base=config.seed + 555_000)
         return self._eval_runners
 
     def evaluate(self) -> Dict[str, Any]:
@@ -458,7 +629,10 @@ class Algorithm:
         cfg = self.config
         self.callbacks.on_evaluate_start(algorithm=self)
         runners = self._ensure_eval_runners()
-        weights = self.learner_group.get_weights()
+        if self.is_multi_agent:
+            weights = self.policy_weights()
+        else:
+            weights = self.learner_group.get_weights()
         sync = [r.set_weights.remote(weights) for r in runners]
         # Exploration schedules live in the driver: push the current annealed
         # value so evaluation_explore=True measures the schedule's policy, not
@@ -472,7 +646,7 @@ class Algorithm:
                 sync += [r.set_exploration.remote(self.epsilon()) for r in runners]
         # Eval runners adopt the training runners' connector state, frozen,
         # so normalization matches training without polluting its stats.
-        if self.env_runners and cfg.env_to_module_connector:
+        if not self.is_multi_agent and self.env_runners and cfg.env_to_module_connector:
             state = ray_tpu_torch.get(self.env_runners[0].get_connector_state.remote())
             sync += [
                 r.set_connector_state.remote(state, freeze=True) for r in runners
@@ -495,7 +669,18 @@ class Algorithm:
                 [r.sample.remote(explore=cfg.evaluation_explore) for r in runners]
             )
             stats = ray_tpu_torch.get([r.episode_stats.remote(clear=True) for r in runners])
-            steps += sum(int(np.asarray(ro["rewards"]).size) for ro in samples)
+            for ro in samples:
+                if "rewards" in ro and not isinstance(ro.get("rewards"), dict):
+                    steps += int(np.asarray(ro["rewards"]).size)
+                else:
+                    # Multi-agent: per-policy column dicts. PG maps carry
+                    # advantages; replay maps carry rewards — count whichever
+                    # exists.
+                    steps += sum(
+                        int(np.asarray(cols["rewards"] if "rewards" in cols
+                                       else cols["advantages"]).size)
+                        for cols in ro.values()
+                    )
             for s in stats:
                 n = int(s.get("episodes", 0))
                 if n:
@@ -538,11 +723,15 @@ class Algorithm:
         """Pickle the iteration, the learner state and the algorithm's own
         state, all numpy: a checkpoint written on the GPU loads on the CPU."""
         os.makedirs(path, exist_ok=True)
+        if self.is_multi_agent:
+            learner_state = {pid: lg.state() for pid, lg in self.learner_groups.items()}
+        else:
+            learner_state = self.learner_group.state()
         with open(os.path.join(path, "algo_state.pkl"), "wb") as fh:
             pickle.dump(
                 {
                     "iteration": self.iteration,
-                    "learner": self.learner_group.state(),
+                    "learner": learner_state,
                     "extra": self._extra_state(),
                 },
                 fh,
@@ -553,7 +742,11 @@ class Algorithm:
         with open(os.path.join(path, "algo_state.pkl"), "rb") as fh:
             state = pickle.load(fh)
         self.iteration = state["iteration"]
-        self.learner_group.load_state(state["learner"])
+        if self.is_multi_agent:
+            for pid, s in state["learner"].items():
+                self.learner_groups[pid].load_state(s)
+        else:
+            self.learner_group.load_state(state["learner"])
         self._load_extra_state(state.get("extra", {}))
 
     def stop(self) -> None:
@@ -563,4 +756,6 @@ class Algorithm:
         for r in list(self.env_runners) + list(getattr(self, "_eval_runners", [])):
             ray_tpu_torch.kill(r)
         self.env_runners, self._eval_runners = [], []
-        self.learner_group.stop()
+        groups = self.learner_groups.values() if self.is_multi_agent else [self.learner_group]
+        for group in groups:
+            group.stop()

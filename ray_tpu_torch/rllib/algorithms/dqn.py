@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.rllib.algorithms.algorithm import _MULTI_AGENT, Algorithm, AlgorithmConfig
+from ray_tpu_torch.rllib.algorithms.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.core.learner import adam, batch_sum
 from ray_tpu_torch.rllib.utils.replay_buffers import (
     PrioritizedReplayBuffer,
@@ -216,21 +216,108 @@ def n_step_columns(rew, dones, n: int, gamma: float):
     return R, end, discount
 
 
-def replay_ma_training_step(algo: Algorithm, **kwargs) -> Dict[str, Any]:
-    """The multi-agent replay iteration (per-policy buffers and learners)."""
-    raise NotImplementedError(_MULTI_AGENT)
+def replay_ma_training_step(
+    algo: Algorithm,
+    *,
+    exploration: Optional[float] = None,
+    batch_extras: Optional[Callable[[str, Dict[str, np.ndarray]], None]] = None,
+    after_update: Optional[Callable[[], None]] = None,
+) -> Dict[str, Any]:
+    """Shared multi-agent replay iteration for value-based algorithms
+    (DQN, SAC): per-policy transition batches from the runners' replay mode
+    feed per-policy buffers and learner updates. `exploration` pushes a
+    schedule value the algorithm holds (DQN epsilon); `batch_extras(pid, batch)`
+    injects per-update columns (SAC noise); `after_update()` runs after each
+    learner update (DQN target sync)."""
+    import ray_tpu_torch
+
+    cfg = algo.config
+    weights = algo.policy_weights()
+    sync = [r.set_weights.remote(weights) for r in algo.env_runners]
+    if exploration is not None:
+        sync += [r.set_exploration.remote(exploration) for r in algo.env_runners]
+    ray_tpu_torch.get(sync)
+    t0 = time.perf_counter()
+    samples = ray_tpu_torch.get([r.sample.remote() for r in algo.env_runners])
+    sample_s = time.perf_counter() - t0
+    for s in samples:
+        for pid, cols in s.items():
+            algo.buffers[pid].add(
+                {
+                    k: np.asarray(
+                        v, None if k == "actions" else np.float32
+                    )
+                    for k, v in cols.items()
+                }
+            )
+            algo.env_steps += int(np.asarray(cols["rewards"]).size)
+    out: Dict[str, Any] = {"num_env_steps_sampled": algo.env_steps, "sample_time_s": sample_s}
+    if exploration is not None:
+        out["epsilon"] = exploration
+    train_set = cfg.policies_to_train or list(algo.learner_groups)
+    t0, updates = time.perf_counter(), 0
+    for pid, lg in algo.learner_groups.items():
+        buf = algo.buffers[pid]
+        out[f"policy_{pid}/buffer_size"] = buf.size
+        if pid not in train_set or buf.size < cfg.learning_starts:
+            continue
+        acc: List[Dict[str, float]] = []
+        for _ in range(cfg.updates_per_iteration):
+            batch = buf.sample(cfg.train_batch_size, algo._rng)
+            if batch_extras is not None:
+                batch_extras(pid, batch)
+            m = lg.update(batch)
+            m.pop("td_abs", None)  # vector aux; MA buffers are uniform
+            acc.append(m)
+            algo.num_updates += 1
+            if after_update is not None:
+                after_update()
+        for k in acc[0]:
+            out[f"policy_{pid}/{k}"] = float(np.mean([m[k] for m in acc]))
+        updates += len(acc)
+    if updates:
+        out["learn_time_s"], out["num_learner_updates"] = time.perf_counter() - t0, updates
+    return algo.collect_episode_metrics(out)
 
 
 class DQN(Algorithm):
+    # Policy-map training via MultiAgentEnvRunner's replay mode (per-policy
+    # transition batches -> per-policy buffers/targets).
+    _supports_multi_agent = True
+
     def __init__(self, config: DQNConfig):
         super().__init__(config)
-        self.buffer = config.make_replay_buffer()
+        if self.is_multi_agent:
+            if config.replay_is_prioritized():
+                raise ValueError(
+                    "prioritized replay is single-agent here; use uniform "
+                    "buffers with multi-agent policy maps"
+                )
+            if config.n_step != 1 or config.num_atoms != 1 or config.dueling:
+                # The MA path's transitions are built runner-side (1-step,
+                # scalar Q); silently training different targets than
+                # configured would misreport what trained.
+                raise ValueError(
+                    "n_step/num_atoms/dueling are single-agent DQN knobs; "
+                    "multi-agent policy maps train 1-step scalar Q"
+                )
+            self.buffers = {
+                pid: ReplayBuffer(config.buffer_capacity) for pid in self.modules
+            }
+        else:
+            self.buffer = config.make_replay_buffer()
         self.num_updates = 0
         self.env_steps = 0
         self._rng = np.random.default_rng(config.seed)
         self._sync_target()
 
     def _sync_target(self) -> None:
+        if self.is_multi_agent:
+            self.target_params = {}
+            for pid, lg in self.learner_groups.items():
+                self.target_params[pid] = lg.get_weights()
+                lg.set_extra({"target_params": self.target_params[pid]})
+            return
         self.target_params = self.learner_group.get_weights()
         self.learner_group.set_extra({"target_params": self.target_params})
 
@@ -291,9 +378,20 @@ class DQN(Algorithm):
         )
 
     # ----------------------------------------------------------- one iteration
+    def _training_step_multi_agent(self) -> Dict[str, Any]:
+        def sync_on_schedule():
+            if self.num_updates % self.config.target_network_update_freq == 0:
+                self._sync_target()
+
+        return replay_ma_training_step(
+            self, exploration=self.epsilon(), after_update=sync_on_schedule
+        )
+
     def training_step(self) -> Dict[str, Any]:
         import ray_tpu_torch
 
+        if self.is_multi_agent:
+            return self._training_step_multi_agent()
         cfg = self.config
         weights = self.learner_group.get_weights()
         sync = [r.set_weights.remote(weights) for r in self.env_runners]
@@ -410,6 +508,10 @@ class DQN(Algorithm):
     def _load_extra_state(self, state: Dict[str, Any]) -> None:
         if "target_params" in state:
             self.target_params = state["target_params"]
-            self.learner_group.set_extra({"target_params": self.target_params})
+            if self.is_multi_agent:
+                for pid, lg in self.learner_groups.items():
+                    lg.set_extra({"target_params": self.target_params[pid]})
+            else:
+                self.learner_group.set_extra({"target_params": self.target_params})
         self.num_updates = int(state.get("num_updates", 0))
         self.env_steps = int(state.get("env_steps", 0))

@@ -147,10 +147,16 @@ class PPO(Algorithm):
     # PPO bootstraps truncations through runner-side values (bootstrap_values)
     # and never reads final_obs: skip shipping the obs-sized buffer.
     _record_final_obs = False
+    # Policy-map training via MultiAgentEnvRunner (reference: PPO rides the
+    # generic multi-agent machinery in `rollout_worker.py`).
+    _supports_multi_agent = True
 
     def __init__(self, config: PPOConfig):
         super().__init__(config)
-        self.kl_coeff = float(config.kl_coeff)
+        if self.is_multi_agent:
+            self.kl_coeff = {pid: float(config.kl_coeff) for pid in self.modules}
+        else:
+            self.kl_coeff = float(config.kl_coeff)
 
     def make_loss(self) -> Callable:
         return make_ppo_loss(self.config)
@@ -206,9 +212,44 @@ class PPO(Algorithm):
             return current * 0.5
         return current
 
+    def _training_step_multi_agent(self) -> Dict[str, Any]:
+        import ray_tpu_torch
+
+        cfg = self.config
+        weights = self.policy_weights()
+        ray_tpu_torch.get([r.set_weights.remote(weights) for r in self.env_runners])
+        t0 = time.perf_counter()
+        samples = ray_tpu_torch.get([r.sample.remote() for r in self.env_runners])
+        out: Dict[str, Any] = {"sample_time_s": time.perf_counter() - t0}
+        total_steps = 0
+        train_set = cfg.policies_to_train or list(self.learner_groups)
+        t0 = time.perf_counter()
+        for pid, lg in self.learner_groups.items():
+            chunks = [s[pid] for s in samples if pid in s]
+            if not chunks:
+                continue
+            batch = {
+                k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]
+            }
+            total_steps += len(batch["advantages"])
+            if pid not in train_set:
+                continue
+            metrics, sampled_kl = self._sgd_epochs(lg, batch, self.kl_coeff[pid])
+            self.kl_coeff[pid] = self._adapt_kl(sampled_kl, self.kl_coeff[pid])
+            metrics["kl_coeff"] = self.kl_coeff[pid]
+            for k, v in metrics.items():
+                out[f"policy_{pid}/{k}"] = v
+        out["learn_time_s"] = time.perf_counter() - t0
+        out["num_learner_updates"] = sum(
+            v for k, v in out.items() if k.endswith("/num_learner_updates"))
+        out["num_env_steps_sampled"] = total_steps
+        return self.collect_episode_metrics(out)
+
     def training_step(self) -> Dict[str, Any]:
         import ray_tpu_torch
 
+        if self.is_multi_agent:
+            return self._training_step_multi_agent()
         cfg = self.config
         # 1. Push current weights to all samplers.
         weights = self.learner_group.get_weights()
@@ -249,4 +290,5 @@ class PPO(Algorithm):
         return {"kl_coeff": self.kl_coeff}
 
     def _load_extra_state(self, state: Dict[str, Any]) -> None:
-        self.kl_coeff = float(state.get("kl_coeff", self.config.kl_coeff))
+        kl = state.get("kl_coeff", self.config.kl_coeff)
+        self.kl_coeff = dict(kl) if isinstance(kl, dict) else float(kl)

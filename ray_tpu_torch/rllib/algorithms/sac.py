@@ -16,7 +16,8 @@ the JAX package. The polyak target blend runs on the learner's device after
 each step (the learner's `extra_update_fn`), so the targets never visit the
 host. Policy noise is pre-drawn on the host from the JAX package's numpy
 stream and rides in the batch, so an update matches the JAX one to float
-tolerance. Single-agent: the policy map waits for ROADMAP.md Queue 1 item 7d.
+tolerance. A policy map (``.multi_agent()``) trains one such learner per
+policy, each with its own buffer and targets.
 """
 
 from __future__ import annotations
@@ -162,17 +163,30 @@ def sample_into_buffer(algo: Algorithm) -> Dict[str, Any]:
 
 
 class SAC(Algorithm):
+    # Policy-map training via MultiAgentEnvRunner's replay mode (continuous
+    # Box agents; per-policy buffers/targets).
+    _supports_multi_agent = True
+
     def __init__(self, config: SACConfig):
         super().__init__(config)
         self.num_updates = 0
         self.env_steps = 0
         self._rng = np.random.default_rng(config.seed)
         # Target twins start as copies of the online critics.
-        self.buffer = ReplayBuffer(config.buffer_capacity)
-        w = self.learner_group.get_weights()
-        self.learner_group.set_extra({"q1": w["q1"], "q2": w["q2"]})
+        if self.is_multi_agent:
+            self.buffers = {pid: ReplayBuffer(config.buffer_capacity) for pid in self.modules}
+            groups = self.learner_groups.values()
+        else:
+            self.buffer = ReplayBuffer(config.buffer_capacity)
+            groups = [self.learner_group]
+        for lg in groups:
+            w = lg.get_weights()
+            lg.set_extra({"q1": w["q1"], "q2": w["q2"]})
 
     def make_module_continuous(self, obs_dim: int, act_space):
+        # Multi-agent note: make_loss() reads the LAST target entropy set
+        # here; with heterogeneous Box shapes across policies, pass an
+        # explicit config.target_entropy.
         return squashed_gaussian_module(self, obs_dim, act_space)
 
     def make_module(self, obs_dim: int, num_actions: int):
@@ -190,25 +204,41 @@ class SAC(Algorithm):
         return make_polyak(self.config.tau, ("q1", "q2"))
 
     # ----------------------------------------------------------- one iteration
-    def _add_noise(self, batch: Dict[str, np.ndarray]) -> None:
-        B, act_dim = len(batch["rewards"]), self.module.act_dim
+    def _add_noise(self, batch: Dict[str, np.ndarray], module=None) -> None:
+        B, act_dim = len(batch["rewards"]), (module or self.module).act_dim
         batch["noise_next"] = self._rng.standard_normal((B, act_dim)).astype(np.float32)
         batch["noise_pi"] = self._rng.standard_normal((B, act_dim)).astype(np.float32)
 
+    def _training_step_multi_agent(self) -> Dict[str, Any]:
+        from ray_tpu_torch.rllib.algorithms.dqn import replay_ma_training_step
+
+        return replay_ma_training_step(
+            self, batch_extras=lambda pid, batch: self._add_noise(batch, self.modules[pid]))
+
     def training_step(self) -> Dict[str, Any]:
+        if self.is_multi_agent:
+            return self._training_step_multi_agent()
         out = sample_into_buffer(self)
         return self.collect_episode_metrics(replay_updates(self, out, self._add_noise))
 
     # -------------------------------------------------------------- checkpoint
     def _extra_state(self) -> Dict[str, Any]:
+        if self.is_multi_agent:
+            targets = {pid: lg.get_extra() for pid, lg in self.learner_groups.items()}
+        else:
+            targets = self.learner_group.get_extra()
         return {
-            "targets": self.learner_group.get_extra(),
+            "targets": targets,
             "num_updates": self.num_updates,
             "env_steps": self.env_steps,
         }
 
     def _load_extra_state(self, state: Dict[str, Any]) -> None:
         if state.get("targets") is not None:
-            self.learner_group.set_extra(state["targets"])
+            if self.is_multi_agent:
+                for pid, lg in self.learner_groups.items():
+                    lg.set_extra(state["targets"][pid])
+            else:
+                self.learner_group.set_extra(state["targets"])
         self.num_updates = int(state.get("num_updates", 0))
         self.env_steps = int(state.get("env_steps", 0))

@@ -9,8 +9,12 @@ The flagship backend is `TorchConfig`/`TorchTrainer` (`ray_tpu_torch.train.
 torch`), the counterpart of the JAX package's `JaxTrainer`: the gang of worker
 actors forms one torch.distributed process group (NCCL when the workers hold
 GPUs, gloo otherwise; none for a gang of one), at the seam where the reference
-calls `dist.init_process_group` (`train/torch/config.py:113`). The predictor
-is not ported yet (ROADMAP.md Queue 1 item 6).
+calls `dist.init_process_group` (`train/torch/config.py:113`).
+
+Inference from a checkpoint: `TorchPredictor` (the JAX package's
+`JaxPredictor`) scores numpy batches on the GPU; `BatchPredictor` holds a
+checkpoint and a predictor class, and scoring a Dataset with it waits for the
+Data library (ROADMAP.md Queue 1 item 11).
 """
 
 from ray_tpu_torch.air.config import (  # re-exported for parity convenience
@@ -24,17 +28,21 @@ from ray_tpu_torch.air.result import Result
 from ray_tpu_torch.train.backend import Backend, BackendConfig
 from ray_tpu_torch.train.base_trainer import BaseTrainer, TrainingFailedError
 from ray_tpu_torch.train.data_parallel_trainer import DataParallelTrainer
+from ray_tpu_torch.train.predictor import BatchPredictor, Predictor, TorchPredictor
 
 __all__ = [
     "Backend",
     "BackendConfig",
     "BaseTrainer",
+    "BatchPredictor",
     "Checkpoint",
     "CheckpointConfig",
     "DataParallelTrainer",
     "FailureConfig",
+    "Predictor",
     "Result",
     "RunConfig",
     "ScalingConfig",
+    "TorchPredictor",
     "TrainingFailedError",
 ]

@@ -535,3 +535,114 @@ def test_gang_loops_reach_a_worker_by_value():
     for name, helper in (("mesh_train_loop", "run_steps"), ("elastic_train_loop", "device_sync"),
                          ("rl_mesh_learner_loop", "rl_learner_inputs")):
         assert helper in sent[name].args[0].__globals__
+
+# ------------------------------------------------------------------ the predictor, multi-agent RL
+@pytest.fixture
+def counted_cpu_attention(monkeypatch):
+    """Each call of the attention's plain version on the CPU counted as a
+    launch of its kernel, so a CPU rehearsal reads the launch counts the
+    card's run reads."""
+    import importlib
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")  # the module
+
+    def counting(fn, wrapper):
+        def call(*args):
+            wrapper.launches += 1
+            return fn(*args)
+
+        return call
+
+    monkeypatch.setattr(fa, "_fwd", counting(fa._fwd, fa._fwd_cuda))
+    monkeypatch.setattr(fa, "_bwd", counting(fa._bwd, fa._bwd_cuda))
+    fa.reset_launch_counts()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+    fa.reset_launch_counts()
+
+
+PREDICTOR_KEYS = {"save_s", "load_s", "pytree_pkl_bytes", "pytree_bits_equal",
+                  "predictor_devices", "predictions_shape", "mean_nll", "loss_fn",
+                  "mean_nll_abs_err", "predict_ms_median", "inference_tokens_per_s",
+                  "launches_per_call", "peak_memory_gib", "wall_s", "card"}
+
+
+def test_predictor_runs_on_the_cpu(counted_cpu_attention, capsys):
+    import json
+
+    from ray_tpu_torch.models import GPTConfig
+
+    # The nano GPT in bf16 compute over f32 params, B 2 x S 32, 2 timed calls.
+    cfg = GPTConfig.nano()
+    launches = chip_smoke.phase_predictor("cpu", cfg=cfg, device="cpu", batch=2, seq=32, calls=2)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["phase"] == "predictor" and PREDICTOR_KEYS <= set(line)
+    assert line["pytree_bits_equal"] and line["predictor_devices"] == ["cpu"]
+    assert line["predictions_shape"] == [2, 32] and line["mean_nll_abs_err"] <= 1e-3
+    assert len(line["predict_ms_timed"]) == 2
+    # Three calls (one warmup), each the forward once per layer, no backward.
+    assert launches == {"flash_fwd": 3 * cfg.n_layer, "flash_bwd": 0}
+    # The kernels line: the predictor on the forward's paths only.
+    per_path = {p: 12 for p in chip_smoke.KERNEL_PATHS}
+    fwd = _kernel(launches_per_path={**per_path, "predictor": launches["flash_fwd"]})
+    bwd = _kernel(name="flash_bwd", launches_per_path={**per_path, "predictor": 0})
+    paths = chip_smoke.KERNEL_PATHS_BY_KERNEL
+    assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd]}, paths) == []
+    bwd_there = _kernel(name="flash_bwd", launches_per_path={**per_path, "predictor": 4})
+    assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd_there]}, paths) == [
+        "flash_bwd: launched on predictor"]
+    no_fwd = _kernel(launches_per_path={**per_path, "predictor": 0})
+    assert chip_smoke.check_kernels_line({"kernels": [no_fwd, bwd]}, paths) == [
+        "flash_fwd: no launch on predictor"]
+
+
+def test_next_token_nll_is_the_loss_per_position():
+    from ray_tpu_torch.models import GPTConfig, init_params, loss_fn
+
+    cfg = GPTConfig.nano(dtype=torch.float32)
+    params = init_params(cfg, 0, device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, 255, (2, 17)))
+    nll = chip_smoke.next_token_nll_fn(cfg)(params, {"tokens": tokens[:, :-1],
+                                                     "targets": tokens[:, 1:]})
+    assert nll.shape == (2, 16) and nll.dtype == torch.float32
+    assert nll.mean().item() == pytest.approx(loss_fn(params, {"tokens": tokens}, cfg).item(),
+                                              rel=1e-6)
+
+
+def test_rl_multi_agent_runs_on_the_cpu(monkeypatch):
+    # The phase at one iteration of each algorithm, bars off, on a runtime of
+    # its own: its lines, and the shutdown check (no session directory, no
+    # worker, no attention launch) over its workers.
+    from ray_tpu_torch.rllib.algorithms import algorithm
+    from ray_tpu_torch.rllib.core import learner_group
+
+    monkeypatch.setattr(algorithm, "default_device", lambda: torch.device("cpu"))
+    monkeypatch.setattr(learner_group, "learner_device", lambda num_gpus: "cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        lines, down = chip_smoke.run_rl_multi_agent("cpu", device="cpu", max_iters=1, bars=False)
+    finally:
+        torch.set_num_threads(threads)
+    assert [x["algo"] for x in lines] == ["ppo", "dqn", "sac"]
+    for line in lines:
+        assert RL_LINE_KEYS <= set(line) and line["phase"] == "rl_multi_agent"
+        assert line["policies"] == ["p0", "p1"]
+        assert [p["device"] for p in line["placement"]["learners"]] == ["cpu", "cpu"]
+        assert all(r["cuda_visible_devices"] == "" for r in line["placement"]["runners"])
+    assert [x["env_steps_per_iteration"] for x in lines] == [512, 512, 256]
+    # DQN runs once per seed of MA_DQN_SEEDS, its bar on their mean curve.
+    assert [x["iterations"] for x in lines] == [1, len(chip_smoke.MA_DQN_SEEDS), 1]
+    dqn = lines[1]
+    assert [x["seed"] for x in dqn["per_seed"]] == list(chip_smoke.MA_DQN_SEEDS)
+    assert len(dqn["mean_returns"]) == 1 and len(set(dqn["worker_pids"])) == 6
+    ppo = lines[0]
+    assert ppo["frozen_p1_bits_equal"] and ppo["trained_p0_moved"]
+    assert ppo["restored_bits_equal"] and ppo["restored_kl_coeff_p1"] == 0.456
+    assert lines[2]["policy_weights_differ"]
+    assert down["phase"] == "rl_shutdown" and "rl_multi_agent" in down["new_phases_s_by_phase"]
+    assert not down["leftover_session_dirs"] and not down["leftover_worker_pids"]
+    assert set(down["run_worker_pids"]) >= set(ppo["restored_worker_pids"])
+    assert not any(down["attention_kernel_launches"].values())

@@ -221,9 +221,10 @@ def test_two_learners_keep_equal_weights(port):
         algo.stop()
 
 
-def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7d"):
-        PPOConfig().multi_agent(policies=["a"])
+def test_what_is_not_ported_raises(monkeypatch):
+    # Multi-agent training (ROADMAP.md item 7d) is ported now: the shared
+    # replay iteration runs on a stub algorithm (tests/test_torch_rllib_
+    # multiagent.py holds it against the JAX package's).
     # Offline input is ported, but not from a Data Dataset (known by its
     # iter_batches): that waits for item 11.
     dataset = type("Dataset", (), {"iter_batches": lambda self, **kw: iter(())})()
@@ -231,19 +232,51 @@ def test_what_is_not_ported_raises():
         PPOConfig().offline_data(input_=dataset).build_input_reader(batch_size=8)
     with pytest.raises(ValueError, match="torch"):
         PPOConfig().framework("jax")
-    from ray_tpu_torch.rllib.algorithms.dqn import replay_ma_training_step
+    import types
 
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        replay_ma_training_step(None)
+    from ray_tpu_torch.rllib.algorithms.dqn import replay_ma_training_step
+    from ray_tpu_torch.rllib.utils.replay_buffers import ReplayBuffer
+
+    monkeypatch.setattr(ray_tpu_torch, "get", _pass_through)
+
+    class _Group:
+        def __init__(self):
+            self.batches = []
+
+        def get_weights(self):
+            return {"w": np.zeros(2, np.float32)}
+
+        def update(self, batch):
+            self.batches.append(batch)
+            return {"total_loss": 1.0, "td_abs": np.zeros(len(batch["rewards"]))}
+
+    rng = np.random.default_rng(0)
+    cols = {"obs": rng.standard_normal((8, OBS)).astype(np.float32),
+            "actions": rng.integers(0, 2, 8), "rewards": np.ones(8, np.float32),
+            "next_obs": rng.standard_normal((8, OBS)).astype(np.float32),
+            "terminateds": np.zeros(8, np.float32), "loss_weight": np.ones(8, np.float32)}
+    algo = types.SimpleNamespace(
+        config=DQNConfig().training(learning_starts=4, train_batch_size=4,
+                                    updates_per_iteration=2),
+        learner_groups={"p0": _Group()}, env_runners=[_StubRunner({"p0": cols})],
+        buffers={"p0": ReplayBuffer(100)}, env_steps=0, num_updates=0, _rng=rng,
+        collect_episode_metrics=lambda out: out)
+    algo.policy_weights = lambda: {p: g.get_weights() for p, g in algo.learner_groups.items()}
+    out = replay_ma_training_step(algo, exploration=0.5)
+    assert out["policy_p0/total_loss"] == 1.0 and out["epsilon"] == 0.5
+    assert algo.num_updates == 2 and algo.env_steps == 8 and out["policy_p0/buffer_size"] == 8
+    assert [len(b["rewards"]) for b in algo.learner_groups["p0"].batches] == [4, 4]
 
 
 def test_exports_are_the_jax_packages_less_multi_agent():
+    # The name is kept from when multi-agent training was not ported: the
+    # exports are now the JAX package's, with TorchLearner for JaxLearner.
     import ray_tpu.rllib as jax_rllib
     import ray_tpu_torch.rllib as rllib
 
-    multi_agent = {"MultiAgentEnv", "make_multi_agent", "MultiAgentEnvRunner"}  # item 7d
-    want = set(jax_rllib.__all__) - multi_agent - {"JaxLearner"} | {"TorchLearner"}
-    assert set(rllib.__all__) == want and len(rllib.__all__) == len(want)
+    want = set(jax_rllib.__all__) - {"JaxLearner"} | {"TorchLearner"}
+    assert set(rllib.__all__) == want and len(rllib.__all__) == len(jax_rllib.__all__)
+    assert {"MultiAgentEnv", "make_multi_agent", "MultiAgentEnvRunner"} <= set(rllib.__all__)
     assert all(hasattr(rllib, name) for name in rllib.__all__)
     import ray_tpu_torch.rllib.offline as offline
 

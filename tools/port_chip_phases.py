@@ -14,7 +14,10 @@ shutdown check), ``mesh`` (``collective_nccl``, then
 ``mesh_gang`` against the main path's first step, taken here) or
 ``pipe_ctx`` (``ring_check``, then ``pipe_ctx_gang`` against the same) or
 ``mesh_rest`` (``moe``, then ``expert_tp_gang`` against it,
-``elastic_reshard`` and ``rl_mesh_learner``). The phases run in this process, after the
+``elastic_reshard`` and ``rl_mesh_learner``) or ``predictor`` (GPT-2 small from seed 0
+through ``save_pytree``/``load_pytree`` and ``TorchPredictor``) or ``rl_multi_agent``
+(multi-agent PPO, DQN and SAC on a runtime of their own, then its shutdown
+check). The phases run in this process, after the
 flags ``chip_smoke.py`` sets (no TF32); each prints its JSON line, and the
 card's name and power limit come first. Run one checkout per process: both
 trees name their package ``ray_tpu_torch``. For an A/B, alternate them:
@@ -31,7 +34,8 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = {"resnet50": "phase_resnet50", "rl_learner_check": "phase_rl_learner_check",
           "rl": "run_rl_phases", "mesh": "run_mesh_phases", "pipe_ctx": "run_pipe_ctx_phases",
-          "mesh_rest": "run_mesh_rest_phases"}
+          "mesh_rest": "run_mesh_rest_phases", "predictor": "phase_predictor",
+          "rl_multi_agent": "run_rl_multi_agent"}
 
 
 def main(argv=None):
