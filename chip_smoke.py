@@ -42,6 +42,18 @@ exits non-zero and prints no result.
    forward and 0 backward launches per ``predict``, the mean NLL within 1e-3
    of ``loss_fn`` on the same params and batch; the median ``predict`` ms
    over 10 calls, inference tokens/s and peak memory.
+   Then Data, on a runtime of its own: ``batch_predictor``, the same params
+   scoring a Dataset of 256 rows (16 blocks of 16) through
+   ``BatchPredictor.predict(ds, batch_size=16, num_workers=2)`` on two pool
+   actors that share the card (0.5 GPU each, one device id), each call's
+   launches (12 forward, 0 backward) counted in its actor, every row's NLLs
+   against the in-process ``TorchPredictor``'s on the same blocks, the node's
+   ``GPU`` held while the actors live and free after; ``data_ingest``, the
+   main path's workload for 4 steps through ``TorchTrainer(datasets=
+   {"train": ds})`` on one GPU worker reading
+   ``session.get_dataset_shard("train").iter_torch_batches(batch_size=16)``:
+   the batches CUDA tensors, 12 + 12 launches a step, the first loss against
+   ``first_step_reference`` on the rows the worker got; ``data_shutdown``.
 6b. collectives and the mesh: ``collective_nccl``, every op of
    ``ray_tpu_torch.util.collective`` on a world-1 NCCL group over CUDA
    tensors, f32 and bf16, each result checked and on ``cuda:0``; then
@@ -118,15 +130,16 @@ exits non-zero and prints no result.
    APPO by the JAX tests' bars), ``rl_continuous`` (SAC, TD3 on Pendulum),
    ``rl_apex`` (Ape-X DQN with 2 runners and 2 replay shards on CPU actors),
    ``rl_offline`` (BC and MARWIL from the trained PPO's episodes written
-   with ``JsonWriter``, CQL from random data on a one-step task, each
-   evaluated on CPU runner actors), ``rl_multi_agent`` (PPO and DQN on two
+   with ``JsonWriter``, CQL from random data on a one-step task, BC again
+   from a ``ray_tpu_torch.data`` Dataset of the PPO episodes' transitions
+   through ``DatasetReader``, each evaluated on CPU runner actors), ``rl_multi_agent`` (PPO and DQN on two
    CartPole agents and SAC on two Pendulum agents, two policies each, one
    learner per policy on the card, by the JAX tests' bars; PPO's
    ``policies_to_train`` and ``save``/``restore`` of both policies), and
    ``rl_shutdown`` (nothing left after ``shutdown()``, no attention kernel
    launched by these phases).
 10. a ``kernels`` line (launches per path: ``KERNEL_PATHS_BY_KERNEL``, the
-   predictor's forward only; rank 0's on a
+   predictor's and the batch predictor's (its actors' sum) forward only; rank 0's on a
    gang; times at the Llama shape and of the ring's blocks with one SDPA
    call on the whole sequence beside them), checked for the keys the
    contract names,
@@ -597,10 +610,11 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 # The training paths the kernels line counts launches on: each must launch both
 # kernels.
 KERNEL_PATHS = ("main_path", "trainer", "mesh_gang", "pipeline_gang", "context_gang", "llama",
-                "moe", "remat_dots", "expert_gang", "elastic_reshard")
-# The paths each kernel must launch on: the predictor (inference) runs the
-# forward only, so the backward must show 0 launches there.
-KERNEL_PATHS_BY_KERNEL = {"flash_fwd": KERNEL_PATHS + ("predictor",),
+                "moe", "remat_dots", "expert_gang", "elastic_reshard", "data_ingest")
+# The paths each kernel must launch on: the predictor and the batch predictor's
+# pool actors (inference) run the forward only, so the backward must show 0
+# launches there.
+KERNEL_PATHS_BY_KERNEL = {"flash_fwd": KERNEL_PATHS + ("predictor", "batch_predictor"),
                           "flash_bwd": KERNEL_PATHS}
 
 
@@ -1925,6 +1939,359 @@ def phase_predictor(smi, params=None, cfg=None, device=None, batch=B, seq=S,
     return launches
 
 
+# ---------------------------------------------------------------------------- Data
+# The batch_predictor phase: BATCH_PREDICT_ROWS rows of S tokens ({"tokens",
+# "targets"} int32 from numpy seed 0, in blocks of B rows) scored by
+# BatchPredictor.predict on a pool of BATCH_PREDICT_WORKERS actors that share
+# the one card (num_gpus_per_worker None: 1/2 each, packed onto one device id),
+# one block of B rows a call. Each row's NLLs are held to the in-process
+# TorchPredictor's on the same rows within BATCH_PREDICT_TOL: the same kernels,
+# shapes, weights and batch composition, so bit equality is expected (and
+# printed); the limit is the predictor phase's (PREDICT_LOSS_TOL), which any
+# other rounding of the bf16 forward stays far inside.
+BATCH_PREDICT_ROWS, BATCH_PREDICT_WORKERS, BATCH_PREDICT_TOL = 256, 2, 1e-3
+# The data_ingest phase: INGEST_STEPS train steps of the main path's workload
+# through TorchTrainer(datasets={"train": ds}) on one GPU worker, each step's
+# batch of B rows (S + 1 tokens, numpy seed 0) from
+# session.get_dataset_shard("train").iter_torch_batches(batch_size=B). The
+# first loss is held to first_step_reference on the rows the worker got, with
+# the main path's limit against plain attention (LOSS_TOL).
+INGEST_STEPS = 4
+
+
+def count_plain_attention():
+    """Count each call of the attention's plain version on CPU tensors as a
+    launch of its kernel, in this process: a CPU rehearsal of the Data
+    phases (whose pool actors and train worker are processes of their own)
+    then reads the launch counts the card's run reads. Never called on the
+    card."""
+    # The module (the package's ``flash_attention`` attribute is the function).
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    def counting(fn, wrapper):
+        def call(*args):
+            wrapper.launches += 1
+            return fn(*args)
+
+        return call
+
+    fa._fwd = counting(fa._fwd, fa._fwd_cuda)
+    fa._bwd = counting(fa._bwd, fa._bwd_cuda)
+
+
+def phase_batch_predictor(smi, params=None, cfg=None, device=None, rows=BATCH_PREDICT_ROWS,
+                          batch=B, seq=S, workers=BATCH_PREDICT_WORKERS):
+    """GPT-2 small's params (the main path's trained ones; fresh from seed 0
+    when run alone) scored over a Dataset by ``BatchPredictor.predict`` on an
+    actor pool that shares the card, against the in-process
+    ``TorchPredictor`` on the same blocks. Each actor reports its own launch
+    counts, device and the node's free ``GPU`` with every call's rows.
+    Returns the phase's line (``launches``: the pool's, summed over its
+    actors)."""
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.air.checkpoint import Checkpoint
+    from ray_tpu_torch.models import GPTConfig, init_params
+    from ray_tpu_torch.models.training import tree_leaves
+    from ray_tpu_torch.train import BatchPredictor, TorchPredictor
+
+    cfg = cfg or GPTConfig.gpt2_small()
+    t_start = time.perf_counter()
+    if params is None:
+        params = init_params(cfg, 0, device=device)
+    device = tree_leaves(params)[0].device
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size - 1, (rows, seq + 1)).astype(np.int32)
+    ds = rd.from_items([{"tokens": t[:-1], "targets": t[1:], "row": i}
+                        for i, t in enumerate(tokens)], parallelism=rows // batch)
+    ckpt = Checkpoint.from_dict({"params": params})
+    apply_fn = next_token_nll_fn(cfg)
+
+    class CountingPredictor(TorchPredictor):
+        """``TorchPredictor`` that adds to each call's rows what this phase
+        checks: the actor's pid, the call's launches (counted from 0 when the
+        actor built its predictor), its device and ``CUDA_VISIBLE_DEVICES``,
+        the node's free ``GPU``, its start and ready times and peak memory."""
+
+        def __init__(self, *args, **kwargs):
+            from ray_tpu_torch.ops import reset_launch_counts
+
+            super().__init__(*args, **kwargs)
+            if self.device.type == "cpu":
+                count_plain_attention()
+            reset_launch_counts()
+            self.calls, self.stamps = 0, (process_start_time(), time.time())
+
+        def predict(self, batch):
+            from ray_tpu_torch.ops import launch_counts
+
+            before, t0 = launch_counts(), time.perf_counter()
+            out = super().predict(batch)  # numpy: the call waited for the card
+            call_ms, after = (time.perf_counter() - t0) * 1e3, launch_counts()
+            self.calls += 1
+            n = len(out["predictions"])
+            extra = {"pid": os.getpid(), "call": self.calls, "device": str(self.device),
+                     "visible": os.environ.get("CUDA_VISIBLE_DEVICES", ""),
+                     "gpu_free": ray_tpu_torch.available_resources().get("GPU", 0.0),
+                     "process_start": self.stamps[0], "ready": self.stamps[1],
+                     "peak_memory_gib": peak_memory_gib(self.device),
+                     "call_ms": call_ms, "call_end": time.time(),
+                     **{k: after[k] - before[k] for k in after}}
+            return {**out, **{k: np.full(n, v) for k, v in extra.items()}}
+
+    # The in-process predictor on the same blocks, one call a block.
+    local = TorchPredictor.from_checkpoint(ckpt, apply_fn=apply_fn, device=device)
+    blocks = [{"tokens": tokens[i:i + batch, :-1], "targets": tokens[i:i + batch, 1:]}
+              for i in range(0, rows, batch)]
+    local.predict(blocks[0])  # warmup
+    device_sync(device)
+    t0 = time.perf_counter()
+    want = np.concatenate([local.predict(b)["predictions"] for b in blocks])
+    local_s = time.perf_counter() - t0
+    del local
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    gpu_total = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+    bp = BatchPredictor.from_checkpoint(ckpt, CountingPredictor, apply_fn=apply_fn,
+                                        device=None if device.type == "cuda" else "cpu")
+    t_submit, t0 = time.time(), time.perf_counter()
+    scored = bp.predict(ds, feature_columns=["tokens", "targets"], keep_columns=["row"],
+                        batch_size=batch, num_workers=workers).take_all()
+    pool_s, t_done = time.perf_counter() - t0, time.time()
+    deadline = time.monotonic() + 10
+    while (ray_tpu_torch.available_resources().get("GPU", 0.0) < gpu_total
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    gpu_free_after = ray_tpu_torch.available_resources().get("GPU", 0.0)
+
+    scored.sort(key=lambda r: int(r["row"]))
+    got = np.stack([r["predictions"] for r in scored]) if scored else np.zeros((0, seq))
+    calls = {(int(r["pid"]), int(r["call"])): r for r in scored}
+    per_call = [{"flash_fwd": int(r["flash_fwd"]), "flash_bwd": int(r["flash_bwd"])}
+                for r in calls.values()]
+    actors = {}
+    for r in scored:
+        a = actors.setdefault(int(r["pid"]), {
+            "pid": int(r["pid"]), "device": str(r["device"]), "visible": str(r["visible"]),
+            "process_start_s": float(r["process_start"]) - t_submit,
+            "ready_s": float(r["ready"]) - t_submit, "calls": 0, "rows": 0,
+            "call_ms": [], "call_end_s": [], "peak_memory_gib": 0.0, "flash_fwd": 0,
+            "flash_bwd": 0})
+        a["rows"] += 1
+        a["peak_memory_gib"] = max(a["peak_memory_gib"], float(r["peak_memory_gib"]))
+    for (pid, _), r in sorted(calls.items()):
+        actors[pid]["calls"] += 1
+        actors[pid]["call_ms"].append(float(r["call_ms"]))
+        actors[pid]["call_end_s"].append(float(r["call_end"]) - t_submit)
+        actors[pid]["flash_fwd"] += int(r["flash_fwd"])
+        actors[pid]["flash_bwd"] += int(r["flash_bwd"])
+    launches = {k: sum(a[k] for a in actors.values()) for k in ("flash_fwd", "flash_bwd")}
+    diff = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    ready = max((t_submit + a["ready_s"] for a in actors.values()), default=t_done)
+    # After each actor's first call (which loads the libraries a fresh CUDA
+    # process loads on its first work): the calls that end after the later of
+    # the two first calls, over the time from that end to the last call's.
+    warm_from = max((a["call_end_s"][0] for a in actors.values()), default=0.0)
+    warm = [e for a in actors.values() for e in a["call_end_s"][1:] if e > warm_from]
+    warm_s = max(warm, default=warm_from) - warm_from
+    line = {"phase": "batch_predictor", "n_layer": cfg.n_layer, "d_model": cfg.d_model,
+            "entry": "BatchPredictor.from_checkpoint(...).predict(ds).take_all()",
+            "rows": rows, "seq": seq, "batch_size": batch, "blocks": ds.num_blocks(),
+            "num_workers": workers, "num_gpus_per_worker": "None (1/num_workers each)",
+            "gpu_total": gpu_total, "gpu_free_during_calls": sorted({float(r["gpu_free"])
+                                                                     for r in scored}),
+            "gpu_free_after": gpu_free_after, "actors": sorted(actors.values(),
+                                                               key=lambda a: a["pid"]),
+            "launches_per_call": per_call, "launches": launches,
+            "predictions_shape": list(got.shape), "predictions_dtype": str(got.dtype),
+            "predictions_finite": bool(np.isfinite(got).all()),
+            "max_abs_diff_vs_in_process": diff, "bit_equal_to_in_process": bool(diff == 0.0),
+            "tol": BATCH_PREDICT_TOL, "pool_s": pool_s,
+            "rows_per_s": rows / pool_s, "tokens_per_s": rows * seq / pool_s,
+            "tokens_per_s_after_actors_ready": rows * seq / max(t_done - ready, 1e-9),
+            "first_call_ms": [a["call_ms"][0] for a in actors.values() if a["call_ms"]],
+            "warm_calls": len(warm), "warm_s": warm_s,
+            "warm_tokens_per_s": len(warm) * batch * seq / warm_s if warm_s > 0 else None,
+            "in_process_s": local_s, "in_process_rows_per_s": rows / local_s,
+            "in_process_tokens_per_s": rows * seq / local_s,
+            "wall_s": time.perf_counter() - t_start, "card": smi}
+    emit(line)
+    n_calls = rows // batch
+    require(len(scored) == rows and [int(r["row"]) for r in scored] == list(range(rows)),
+            f"batch_predictor: {len(scored)} rows scored of {rows}")
+    require(got.shape == (rows, seq) and got.dtype == np.float32 and line["predictions_finite"],
+            f"batch_predictor: predictions {got.shape} {got.dtype}")
+    require(diff <= BATCH_PREDICT_TOL, f"batch_predictor: rows differ from the in-process "
+                                       f"predictor's by {diff}")
+    require(len(actors) == workers, f"batch_predictor: {len(actors)} actors scored, "
+                                    f"expected {workers}")
+    require(len(per_call) == n_calls and all(
+        c == {"flash_fwd": cfg.n_layer, "flash_bwd": 0} for c in per_call),
+        f"batch_predictor: launches per call {per_call}, expected {n_calls} calls of "
+        f"{cfg.n_layer} forward and 0 backward")
+    require(launches == {"flash_fwd": cfg.n_layer * n_calls, "flash_bwd": 0},
+            f"batch_predictor: launches {launches}")
+    if device.type == "cuda":
+        visible = {a["visible"] for a in actors.values()}
+        require(len(visible) == 1 and "" not in visible and all(
+            a["device"].startswith("cuda") for a in actors.values()),
+            f"batch_predictor: actors on {sorted(actors.values(), key=lambda a: a['pid'])}")
+        require(line["gpu_free_during_calls"] == [0.0] and gpu_free_after == gpu_total == 1,
+                f"batch_predictor: GPU free {line['gpu_free_during_calls']} during the calls, "
+                f"{gpu_free_after} of {gpu_total} after")
+    return line
+
+
+def ingest_loop(config):
+    """The data_ingest phase's per-worker loop: the main path's model and
+    optimizer from seed 0, each step's batch from this worker's dataset
+    shard through ``iter_torch_batches`` (``config["batch_device"]``: None,
+    the GPU, on the card), each step's launches counted from 0; reports the
+    losses, launches, the batches' devices and dtypes, the time each batch
+    took to arrive, and the first batch's tokens."""
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import create_train_state, default_optimizer, make_train_step
+    from ray_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg, device = config["cfg"], config["device"]
+    if device == "cpu":
+        count_plain_attention()
+    opt = default_optimizer(learning_rate=3e-4)
+    state = create_train_state(cfg, 0, opt, device=device)
+    step = make_train_step(cfg, opt)
+    shard = session.get_dataset_shard("train")
+    batches = shard.iter_torch_batches(batch_size=config["batch"], device=config["batch_device"])
+    reset_launch_counts()
+    out = {"losses": [], "launches_per_step": [], "batch_devices": [], "batch_dtypes": [],
+           "batch_wait_ms": [], "step_ms": []}
+    t0 = time.perf_counter()
+    for b in batches:
+        out["batch_wait_ms"].append((time.perf_counter() - t0) * 1e3)
+        tokens = b["tokens"]
+        if not out["losses"]:
+            out["first_tokens"] = tokens.cpu().numpy().tolist()
+        out["batch_devices"].append(str(tokens.device))
+        out["batch_dtypes"].append(str(tokens.dtype).replace("torch.", ""))
+        before = launch_counts()
+        device_sync(tokens.device)
+        t1 = time.perf_counter()
+        state, m = step(state, {"tokens": tokens})
+        device_sync(tokens.device)
+        out["step_ms"].append((time.perf_counter() - t1) * 1e3)
+        after = launch_counts()
+        out["losses"].append(m["loss"].item())
+        out["launches_per_step"].append({k: after[k] - before[k] for k in after})
+        t0 = time.perf_counter()
+    out.update(launches=launch_counts(), pid=os.getpid(),
+               cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+               device=str(state.params["wte"].device),
+               peak_memory_gib=peak_memory_gib(state.params["wte"].device))
+    session.report(out)
+
+
+def phase_data_ingest(smi, cfg=None, device=None, batch=B, seq=S, steps=INGEST_STEPS):
+    """The main path's workload fed by Data: ``TorchTrainer(datasets=
+    {"train": ds})`` on one GPU worker, whose loop reads its shard's
+    ``iter_torch_batches()``. Checks the batches arrive as CUDA tensors, each
+    step's launches, and the first loss against ``first_step_reference`` on
+    the rows the worker got. Returns the phase's line (``launches``: the
+    worker's)."""
+    import torch
+
+    import ray_tpu_torch
+    import ray_tpu_torch.train.torch as rt_torch
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch._private.accelerators.gpu import resolve_device
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.models import GPTConfig, gpt
+    from ray_tpu_torch.train.torch import TorchConfig
+
+    cfg = cfg or GPTConfig.gpt2_small()
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size - 1, (steps * batch, seq + 1)).astype(np.int32)
+    ds = rd.from_items([{"tokens": t} for t in tokens], parallelism=steps)
+    session_dir = ray_tpu_torch._private.worker.global_worker.session_dir
+    trainer = rt_torch.TorchTrainer(
+        ingest_loop,
+        train_loop_config={"cfg": cfg, "batch": batch, "device": "cpu" if on_cpu else None,
+                           "batch_device": "cpu" if on_cpu else None},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=not on_cpu),
+        backend_config=TorchConfig(device="cpu") if on_cpu else None,
+        run_config=RunConfig(name="chip_smoke_data_ingest",
+                             storage_path=os.path.join(session_dir, "results")),
+        datasets={"train": ds})
+    t0 = time.perf_counter()
+    result = trainer.fit()
+    fit_s = time.perf_counter() - t0
+    if result.error is not None:
+        raise result.error
+    w = result.metrics
+    first = np.asarray(w["first_tokens"], np.int32)
+    ref_loss, _ = first_step_reference(
+        cfg, {"tokens": torch.as_tensor(first, device=resolve_device(device))}, gpt)
+    loss_err = abs(w["losses"][0] - ref_loss)
+    line = {"phase": "data_ingest", "entry": "TorchTrainer(datasets={'train': ds}).fit",
+            "reads": "session.get_dataset_shard('train').iter_torch_batches(batch_size=B)",
+            "n_layer": cfg.n_layer, "batch": batch, "seq": seq, "rows": steps * batch,
+            "blocks": steps, "worker_pid": w["pid"],
+            "worker_cuda_visible_devices": w["cuda_visible_devices"],
+            "worker_device": w["device"], "batch_devices": w["batch_devices"],
+            "batch_dtypes": w["batch_dtypes"], "losses": w["losses"],
+            "first_step_reference": ref_loss, "first_loss_abs_err": loss_err, "tol": LOSS_TOL,
+            "first_rows_are_the_first_block": bool(np.array_equal(first, tokens[:batch])),
+            "launches_per_step": w["launches_per_step"], "launches": w["launches"],
+            "batch_wait_ms": w["batch_wait_ms"], "step_ms": w["step_ms"],
+            "peak_memory_gib": w["peak_memory_gib"], "fit_s": fit_s,
+            "wall_s": time.perf_counter() - t_start, "card": smi}
+    emit(line)
+    want = "cpu" if on_cpu else "cuda"
+    require(len(w["losses"]) == steps and all(math.isfinite(x) for x in w["losses"]),
+            f"data_ingest: losses {w['losses']}, expected {steps} finite")
+    require(all(d.startswith(want) for d in w["batch_devices"] + [w["device"]]),
+            f"data_ingest: batches on {w['batch_devices']}, model on {w['device']}")
+    require(all(c == {"flash_fwd": cfg.n_layer, "flash_bwd": cfg.n_layer}
+                for c in w["launches_per_step"]),
+            f"data_ingest: launches per step {w['launches_per_step']}")
+    require(loss_err <= LOSS_TOL, f"data_ingest: first loss {w['losses'][0]} vs "
+                                  f"first_step_reference {ref_loss}")
+    return line
+
+
+def run_data_phases(smi, params=None, cfg=None, device=None, **sizes):
+    """``batch_predictor`` and ``data_ingest`` on one runtime
+    (``init(num_cpus=4)``), then its shutdown: no session directory and none
+    of its worker processes left. ``sizes`` (``rows``, ``batch``, ``seq``)
+    shrink them for a CPU rehearsal. Returns each phase's launches."""
+    import ray_tpu_torch
+
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4)
+    init_s = time.perf_counter() - t0
+    session_dir = ray_tpu_torch._private.worker.global_worker.session_dir
+    pids = runtime_worker_pids()
+    ingest = {k: v for k, v in sizes.items() if k in ("batch", "seq")}
+    try:
+        bp = phase_batch_predictor(smi, params, cfg, device, **sizes)
+        pids |= {a["pid"] for a in bp["actors"]} | runtime_worker_pids()
+        di = phase_data_ingest(smi, cfg, device, **ingest)
+        pids |= {di["worker_pid"]} | runtime_worker_pids()
+    finally:
+        ray_tpu_torch.shutdown()
+    leftover_dirs = [session_dir] if os.path.exists(session_dir) else []
+    leftover_pids = sorted(pid for pid in pids if pid_alive(pid))
+    emit({"phase": "data_shutdown", "init_s": init_s, "run_worker_pids": sorted(pids),
+          "leftover_session_dirs": leftover_dirs, "leftover_worker_pids": leftover_pids,
+          "data_phases_s": time.perf_counter() - t0})
+    require(not leftover_dirs, f"session directories left after shutdown: {leftover_dirs}")
+    require(not leftover_pids, f"worker processes alive after shutdown: {leftover_pids}")
+    return {"batch_predictor": bp["launches"], "data_ingest": di["launches"]}
+
+
 # ---------------------------------------------------------------------------- RLlib
 # The RL phases' CartPole: gymnasium's CartPole-v1 (envs/classic_control/
 # cartpole.py: dynamics, thresholds, reset draw) under its 500-step TimeLimit,
@@ -2168,8 +2535,9 @@ def apex_config():
 
 def offline_config(name, path):
     """BC or MARWIL (``name``) as tests/test_rllib_offline.py:107-115 and
-    :160-172 train them from ``path``, or CQL as tests/test_rllib_extras.py:
-    395-403 does, on the numpy envs."""
+    :160-172 train them from ``path`` (JSON files, or a Dataset as :141
+    does), or CQL as tests/test_rllib_extras.py:395-403 does, on the numpy
+    envs."""
     import ray_tpu_torch.rllib as rllib
 
     if name == "cql":
@@ -2787,16 +3155,19 @@ def write_offline_data(root, ppo_weights):
     ``ppo``, greedy episodes of the trained PPO; ``mixed``, the same PPO on
     even episodes and random actions on odd ones; ``cql``, uniform random
     actions on the one-step task (tests/test_rllib_extras.py:385-399).
-    Returns the PPO episodes' mean return."""
+    Returns the PPO episodes' mean return and their transitions as rows of
+    ``obs`` and ``actions`` (tests/test_rllib_offline.py:141's Dataset)."""
     from ray_tpu_torch.rllib.offline import JsonWriter
 
-    returns = []
+    returns, transitions = [], []
     for name, every in (("ppo", 0), ("mixed", 2)):
         writer = JsonWriter(os.path.join(root, name))
         for rows in greedy_episodes(ppo_weights, OFFLINE_EPISODES, random_every=every):
             writer.write(rows)
             if name == "ppo":
                 returns.append(sum(rows["rewards"]))
+                transitions += [{"obs": np.asarray(o, np.float32), "actions": a}
+                                for o, a in zip(rows["obs"], rows["actions"])]
         writer.close()
     rng = np.random.default_rng(7)
     writer = JsonWriter(os.path.join(root, "cql"))
@@ -2808,27 +3179,33 @@ def write_offline_data(root, ppo_weights):
                       "next_obs": rng.uniform(-1, 1, (64, 1)).astype(np.float32),
                       "dones": np.ones(64, np.float32)})
     writer.close()
-    return float(np.mean(returns))
+    return float(np.mean(returns)), transitions
 
 
 def phase_rl_offline(smi, ppo_weights, device="cuda", iters=None, bars=True):
     """BC (from the trained PPO's greedy episodes), MARWIL (from those mixed
     with random ones) and CQL (from random actions on the one-step task),
-    each reading JSON files through ``offline_data(input_=)``, its learner on
-    ``device``, no runner sampling for training; then each one's evaluation
-    on CPU runner actors, against the JAX tests' bars."""
+    each reading JSON files through ``offline_data(input_=)``, then BC again
+    from a ``ray_tpu_torch.data`` Dataset of the PPO episodes' transitions
+    (through ``DatasetReader``); each learner on ``device``, no runner
+    sampling for training; then each one's evaluation on CPU runner actors,
+    against the JAX tests' bars."""
     import shutil
     import tempfile
 
+    from ray_tpu_torch import data as rd
+
     root = tempfile.mkdtemp(prefix="chip_smoke_offline_")
     t0 = time.perf_counter()
-    behavior_return = write_offline_data(root, ppo_weights)
+    behavior_return, transitions = write_offline_data(root, ppo_weights)
+    ppo_dataset = rd.from_items(transitions)
     write_s = time.perf_counter() - t0
     keys = ("vf_loss", "ma_sqd_adv_norm", "critic_loss", "cql_penalty", "policy_loss")
     lines = []
     for name, data, n_iters in (("bc", "ppo", BC_ITERS), ("marwil", "mixed", MARWIL_ITERS),
-                                ("cql", "cql", CQL_ITERS)):
-        cfg = offline_config(name, os.path.join(root, data))
+                                ("cql", "cql", CQL_ITERS), ("bc", "ppo_dataset", BC_ITERS)):
+        source = ppo_dataset if data == "ppo_dataset" else os.path.join(root, data)
+        cfg = offline_config(name, source)
         t_start = time.perf_counter()
         algo = cfg.build()
         placement = rl_placement(algo, device)
@@ -2844,7 +3221,9 @@ def phase_rl_offline(smi, ppo_weights, device="cuda", iters=None, bars=True):
         placement["evaluation_runners"] = actor_placements(evaluators)
         last = rows[-1]
         line = rl_finish(algo, {"phase": "rl_offline", "algo": name, "data": data,
-                                "placement": placement,
+                                "reader": type(algo.reader).__name__,
+                                "dataset_rows": len(transitions) if data == "ppo_dataset"
+                                else None, "placement": placement,
                                 "behavior_return_mean": None if name == "cql" else behavior_return,
                                 "write_s": write_s, **rl_totals(rows, 0), "per_iteration": rows,
                                 "evaluation_return_mean": ev.get("episode_return_mean"),
@@ -3463,8 +3842,9 @@ def main():
     require(not leftover_dirs, f"session directories left after shutdown: {leftover_dirs}")
     require(not leftover_pids, f"worker processes alive after shutdown: {leftover_pids}")
 
-    # ------------------------------------------------------------------ 6a. the predictor
+    # ------------------------------------------------------------------ 6a. the predictor, Data
     predictor_launches = phase_predictor(smi, main_params)
+    data_launches = run_data_phases(smi, main_params)
     del main_params
     torch.cuda.empty_cache()
 
@@ -3505,6 +3885,7 @@ def main():
     # ------------------------------------------------------------------ 10. result
     launches_per_path = {name: {"main_path": launches[name], "trainer": t_launches[name],
                                 "predictor": predictor_launches[name],
+                                **{path: n[name] for path, n in data_launches.items()},
                                 "mesh_gang": mesh_launches[name],
                                 **{path: n[name] for path, n in gang_launches.items()},
                                 **{path: n[name] for path, n in zoo_launches.items()}}

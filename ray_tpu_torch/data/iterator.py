@@ -1,0 +1,270 @@
+"""DataIterator + streaming-split coordination: pipelined per-worker
+iteration over ONE executing stream.
+
+Reference: `python/ray/data/dataset.py:1134` (`Datastream.streaming_split`)
++ `_internal/execution/operators/output_splitter.py` — n consumers (train
+workers) each get a `DataIterator`; blocks are assigned to consumers
+ON DEMAND as the stream produces them, so ingest overlaps training and no
+consumer waits on a static pre-split. The stream executes inside a
+coordinator actor; epochs re-execute the plan behind an all-consumer
+barrier (`_internal/iterator/stream_split_iterator.py`).
+
+The shape: the coordinator hands out block REFS (the consumer pulls
+bytes peer-direct from the object plane); block production stays paced by
+the streaming executor's backpressure budgets, so peak resident blocks is
+bounded by the executor queues — not the dataset size.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Iterator, List, Optional
+
+import ray_tpu_torch
+from ray_tpu_torch.data.block import Block, BlockAccessor
+
+
+def to_torch_batches(batches, dtypes=None, device=None) -> Iterator[Dict[str, Any]]:
+    """Numpy batches as dicts of torch tensors on ``device`` (``None``: the
+    GPU, ``default_device()``, raising without one). Numeric columns convert
+    through ``torch.as_tensor``; object columns pass through unconverted.
+    ``dtypes`` is one dtype, or a dict of column -> dtype (unlisted columns
+    keep the inferred one)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch._private.accelerators.gpu import resolve_device
+
+    dev = resolve_device(device)
+    for batch in batches:
+        out = {}
+        for k, v in batch.items():
+            if v.dtype == object:
+                out[k] = v
+                continue
+            if isinstance(v, np.ndarray) and not v.flags.writeable:
+                # Batches are read-only views (they may alias the shm store);
+                # torch needs writable memory.
+                v = v.copy()
+            want = dtypes.get(k) if isinstance(dtypes, dict) else dtypes
+            out[k] = torch.as_tensor(v).to(dev, want)
+        yield out
+
+
+class _StreamSplitCoordinator:
+    """Actor owning the executing stream. Threaded: each consumer parks one
+    call slot in `next_bundle` while it waits for its block.
+
+    Epoch protocol: a consumer announces `start_epoch(e)` before pulling;
+    the e-th execution of the plan starts once ALL n consumers have arrived
+    (a barrier — otherwise a fast consumer would re-execute the plan while
+    stragglers still drain the previous pass)."""
+
+    def __init__(self, ds, n: int, equal: bool, barrier_timeout_s: float = 600.0):
+        self._ds = ds
+        self._n = n
+        self._equal = equal
+        self._barrier_timeout_s = barrier_timeout_s
+        self._lock = threading.Lock()
+        self._barrier = threading.Condition(self._lock)
+        self._epoch = -1
+        self._arrived: set = set()
+        self._gen = None
+        self._done = False
+        # Per-split accounting: rows for diagnostics, blocks for the
+        # equal=True fairness gate.
+        self._rows_out: List[int] = [0] * n
+        self._taken: List[int] = [0] * n
+        self._blocks_out = 0
+        # Epoch whose fairness gate tripped its deadline: fairness stays OFF
+        # for the remainder of that epoch (one consumer stopped pulling; the
+        # live ones must drain the stream at full speed, not one block per
+        # deadline).
+        self._fairness_off_epoch = -1
+
+    def start_epoch(self, split_idx: int, epoch: int) -> bool:
+        """Barrier: returns once epoch `epoch`'s stream is live."""
+        with self._barrier:
+            if epoch <= self._epoch:
+                return True
+            self._arrived.add((epoch, split_idx))
+            count = sum(1 for (e, _s) in self._arrived if e == epoch)
+            if count >= self._n:
+                # Last arriver flips the epoch and starts the new stream.
+                self._epoch = epoch
+                self._arrived = {
+                    (e, s) for (e, s) in self._arrived if e > epoch
+                }
+                self._gen = self._ds._stream_bundles(output_buffer_blocks=2)
+                self._done = False
+                self._taken = [0] * self._n
+                self._barrier.notify_all()
+                return True
+            # Deadline: a consumer that never iterates its shard (worker
+            # returned early, conditional read) must surface as an ERROR
+            # naming the gap, not hang the whole gang forever.
+            import time as _time
+
+            deadline = _time.monotonic() + self._barrier_timeout_s
+            while self._epoch < epoch:
+                if _time.monotonic() > deadline:
+                    waiting = sorted(
+                        s for (e, s) in self._arrived if e == epoch
+                    )
+                    raise RuntimeError(
+                        f"streaming_split epoch {epoch} barrier timed out "
+                        f"after {self._barrier_timeout_s:.0f}s: only splits "
+                        f"{waiting} of {self._n} arrived — every consumer "
+                        "must iterate its shard each epoch"
+                    )
+                self._barrier.wait(1.0)
+            return True
+
+    def next_bundle(self, split_idx: int, epoch: int) -> Optional[Any]:
+        """The next produced block ref for this consumer, or None at end of
+        stream. On-demand assignment: whichever consumer asks first gets the
+        next block — consumers iterating in lockstep (SPMD training) stay
+        naturally balanced."""
+        with self._barrier:
+            if epoch != self._epoch or self._gen is None:
+                return None
+            if self._equal and self._fairness_off_epoch != epoch:
+                # Fairness gate: a split strictly ahead of the laggiest one
+                # waits its turn, so every split ends the epoch with k or
+                # k+1 blocks (lockstep SPMD consumers never actually wait).
+                # Best-effort with a deadline: a consumer that stopped
+                # pulling mid-epoch must not deadlock the rest — on the
+                # first trip fairness turns OFF for the whole epoch, so the
+                # live consumers drain the stream at full speed (not one
+                # block per deadline).
+                import time as _time
+
+                fair_deadline = _time.monotonic() + 60.0
+                while (
+                    not self._done
+                    and epoch == self._epoch
+                    # Another waiter tripping the deadline releases everyone
+                    # parked here too, not just itself.
+                    and self._fairness_off_epoch != epoch
+                    and self._taken[split_idx] > min(self._taken)
+                ):
+                    if _time.monotonic() >= fair_deadline:
+                        self._fairness_off_epoch = epoch
+                        self._barrier.notify_all()
+                        break
+                    self._barrier.wait(0.5)
+            if epoch != self._epoch:
+                return None
+            if self._done:
+                return None
+            try:
+                bundle = next(self._gen)
+            except StopIteration:
+                self._done = True
+                self._barrier.notify_all()
+                return None
+            self._rows_out[split_idx] += bundle.meta.num_rows if bundle.meta else 0
+            self._taken[split_idx] += 1
+            self._blocks_out += 1
+            self._barrier.notify_all()
+            return bundle.block_ref
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "epoch": self._epoch,
+                "blocks_out": self._blocks_out,
+                "rows_per_split": list(self._rows_out),
+                "blocks_per_split": list(self._taken),
+            }
+
+
+class DataIterator:
+    """One consumer's view of a streaming split (reference:
+    `python/ray/data/iterator.py DataIterator`). Picklable — holds only the
+    coordinator handle and the split index; ship it to the train worker and
+    call `iter_batches()` once per epoch."""
+
+    def __init__(self, coordinator, split_idx: int, n: int):
+        self._coordinator = coordinator
+        self._split_idx = split_idx
+        self._n = n
+        self._epoch = -1
+
+    # ------------------------------------------------------------ iteration
+    def _iter_blocks(self) -> Iterator[Block]:
+        self._epoch += 1
+        ray_tpu_torch.get(
+            self._coordinator.start_epoch.remote(self._split_idx, self._epoch)
+        )
+        while True:
+            ref = ray_tpu_torch.get(
+                self._coordinator.next_bundle.remote(self._split_idx, self._epoch)
+            )
+            if ref is None:
+                return
+            yield ray_tpu_torch.get(ref)
+
+    def iter_batches(
+        self,
+        *,
+        batch_size: Optional[int] = 256,
+        batch_format: str = "numpy",
+        drop_last: bool = False,
+    ) -> Iterator[Any]:
+        """Batches over this split's share of the stream; rows carry across
+        block boundaries exactly like `Dataset.iter_batches`."""
+        carry: List[Block] = []
+        carry_rows = 0
+        for block in self._iter_blocks():
+            carry.append(block)
+            carry_rows += BlockAccessor(block).num_rows()
+            step = batch_size or carry_rows
+            while step and carry_rows >= step:
+                merged = BlockAccessor.concat(carry)
+                acc = BlockAccessor(merged)
+                yield BlockAccessor(acc.slice(0, step)).to_batch(batch_format)
+                rest = acc.slice(step, acc.num_rows())
+                carry = [rest]
+                carry_rows = BlockAccessor(rest).num_rows()
+        if carry_rows and not drop_last:
+            merged = BlockAccessor.concat(carry)
+            if BlockAccessor(merged).num_rows():
+                yield BlockAccessor(merged).to_batch(batch_format)
+
+    def iter_torch_batches(self, **kwargs) -> Iterator[Dict[str, Any]]:
+        """``iter_batches`` as torch tensors on ``device`` (``None``: the GPU,
+        raising without one; the reference's ``None`` gives CPU tensors)."""
+        dtypes = kwargs.pop("dtypes", None)
+        device = kwargs.pop("device", None)
+        return to_torch_batches(self.iter_batches(**kwargs), dtypes, device)
+
+    def count(self) -> int:
+        """Rows in this split's share — consumes one epoch pass (every
+        consumer must make the same pass for the epoch barrier to clear)."""
+        return sum(
+            BlockAccessor(b).num_rows() for b in self._iter_blocks()
+        )
+
+    def stats(self) -> Dict[str, Any]:
+        return ray_tpu_torch.get(self._coordinator.stats.remote())
+
+    def __repr__(self):
+        return f"DataIterator(split={self._split_idx}/{self._n})"
+
+
+def make_streaming_split(
+    ds, n: int, *, equal: bool = False, locality_hints: Optional[List[str]] = None
+) -> List[DataIterator]:
+    """Build the coordinator actor + n DataIterators over `ds`'s stream.
+    `locality_hints` is accepted for API parity; block bytes already move
+    peer-direct from producer to consumer through the object plane, so the
+    hint has no additional routing to do on this runtime."""
+    if n < 1:
+        raise ValueError("streaming_split needs n >= 1")
+    coordinator = (
+        ray_tpu_torch.remote(_StreamSplitCoordinator)
+        .options(num_cpus=0.1, max_concurrency=max(8, 2 * n))
+        .remote(ds, n, equal)
+    )
+    return [DataIterator(coordinator, i, n) for i in range(n)]

@@ -419,8 +419,8 @@ def forward(
     attention_fn: Optional[Callable] = None,
     dropout_seed: Optional[int] = None,
     mesh=None,
-    return_aux: bool = False,
     num_microbatches: Optional[int] = None,
+    return_aux: bool = False,
 ):
     """Returns logits (B, S, vocab) in float32 (with ``return_aux``, a
     (logits, moe_aux_loss) pair). Pass ``dropout_seed`` to enable dropout

@@ -256,7 +256,7 @@ def _block(x, layer, config: LlamaConfig, attention_fn, cos, sin, sub_remat=Fals
 def _hidden(params, tokens, config: LlamaConfig, attention_fn, spmd, num_microbatches):
     """The final RMS-normed activations (B, S, D) in ``config.dtype`` on one
     device, or this rank's on a mesh (the last stage's, a 0-dim zero on the
-    other stages of a pipeline)."""
+    other stages of a pipeline), and the stack's aux (an f32 scalar)."""
     cdt = config.dtype
     B, S = tokens.shape
     if spmd is None:
@@ -280,12 +280,12 @@ def _hidden(params, tokens, config: LlamaConfig, attention_fn, spmd, num_microba
             return remat(block_fn, config.remat_policy)
         return block_fn
 
-    x, _ = apply_stack(params["blocks"], x, make_block_fn, n_layer=config.n_layer,
-                       attention_fn=attention_fn, spmd=spmd,
-                       num_microbatches=num_microbatches, seq_streams=streams)
+    x, aux = apply_stack(params["blocks"], x, make_block_fn, n_layer=config.n_layer,
+                         attention_fn=attention_fn, spmd=spmd,
+                         num_microbatches=num_microbatches, seq_streams=streams)
     if spmd is None or spmd.last_stage:
         x = _rms_norm(x, params["final_norm"], config.norm_eps).to(cdt)
-    return x
+    return x, aux
 
 
 def _head(params, config: LlamaConfig, spmd):
@@ -301,20 +301,24 @@ def forward(
     dropout_seed: Optional[int] = None,  # accepted for API parity; Llama uses no dropout
     mesh=None,
     num_microbatches: Optional[int] = None,
+    return_aux: bool = False,
 ):
-    """Logits (B, S, vocab) in float32; on a ``mesh``, from DTensor params
+    """Logits (B, S, vocab) in float32 (with ``return_aux``, a (logits, aux)
+    pair, aux the stack's f32 scalar); on a ``mesh``, from DTensor params
     and tokens, a DTensor as ``gpt.forward`` returns."""
     del dropout_seed
     spmd = spmd_for(mesh)
     if spmd is None:
-        return _lm_head(_hidden(params, tokens, config, attention_fn, None, num_microbatches),
-                        _head(params, config, None))
+        x, aux = _hidden(params, tokens, config, attention_fn, None, num_microbatches)
+        logits = _lm_head(x, _head(params, config, None))
+        return (logits, aux) if return_aux else logits
     params, tokens = spmd.local(params), spmd.batch_local(tokens)
-    x = _hidden(params, tokens, config, attention_fn, spmd, num_microbatches)
+    x, aux = _hidden(params, tokens, config, attention_fn, spmd, num_microbatches)
     x = stage_output(x, (*tokens.shape, config.d_model), config.dtype, spmd)
     head = _head(params, config, spmd)
     logits = _lm_head(spmd.copy_to_tp(x, head.shape[0] < config.vocab_size), head)
-    return spmd.global_batch(logits, config.vocab_size)
+    logits = spmd.global_batch(logits, config.vocab_size)
+    return (logits, aux) if return_aux else logits
 
 
 def loss_fn(
@@ -337,6 +341,6 @@ def loss_fn(
     else:
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    x = _hidden(params, inputs, config, attention_fn, spmd, num_microbatches)
+    x, _ = _hidden(params, inputs, config, attention_fn, spmd, num_microbatches)
     head = _head(params, config, spmd) if spmd is None or spmd.last_stage else None
     return lm_head_loss(x, head, targets, config.vocab_size, spmd, num_microbatches)

@@ -136,6 +136,12 @@ def init_params(config: ResNetConfig, seed=0, device=None, place=None) -> Dict[s
     return _spec_map(make, _param_spec(config))
 
 
+def init_shapes(config: ResNetConfig) -> Dict[str, Any]:
+    """The params' shapes and dtypes, as meta-device tensors (the reference's
+    ``jax.eval_shape`` of ``init_params``)."""
+    return init_params(config, device="meta")
+
+
 def param_logical_axes(config: ResNetConfig) -> Dict[str, Any]:
     """Those of ``ray_tpu/models/resnet.py``: conv kernels shard their
     output-channel dim over ``mlp``; the classifier head shards embed ->
@@ -353,15 +359,22 @@ def forward(
     attention_fn=None,  # API parity with the LM families (unused)
     dropout_seed=None,
     mesh=None,
+    num_microbatches=None,  # API parity with the LM families (unused)
+    return_aux: bool = False,
 ):
-    """Class logits (B, num_classes) in float32. On a mesh, from this rank's
-    shards (the head gathered over fsdp; channels and classes split over the
-    tensor axis), returned as a DTensor with the batch over (data, fsdp) and
-    the classes over tensor where the head splits them."""
-    del attention_fn, dropout_seed
+    """Class logits (B, num_classes) in float32 (with ``return_aux``, a
+    (logits, zero aux) pair). On a mesh, from this rank's shards (the head
+    gathered over fsdp; channels and classes split over the tensor axis),
+    returned as a DTensor with the batch over (data, fsdp) and the classes
+    over tensor where the head splits them."""
+    del attention_fn, dropout_seed, num_microbatches
     spmd = spmd_for(mesh)
     logits = _forward_local(params, images, config, spmd)
-    return logits if spmd is None else spmd.global_batch(logits, config.num_classes)
+    if spmd is not None:
+        logits = spmd.global_batch(logits, config.num_classes)
+    if return_aux:
+        return logits, torch.zeros((), dtype=torch.float32, device=images.device)
+    return logits
 
 
 def loss_fn(
@@ -371,10 +384,11 @@ def loss_fn(
     attention_fn=None,
     dropout_seed=None,
     mesh=None,
+    num_microbatches=None,
 ):
     """Softmax cross entropy over classes (mean over the batch; on a mesh,
     over the global batch)."""
-    del attention_fn, dropout_seed
+    del attention_fn, dropout_seed, num_microbatches
     spmd = spmd_for(mesh)
     logits = _forward_local(params, batch["images"], config, spmd)
     if spmd is None:

@@ -26,6 +26,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ray_tpu_torch.ops.basic import causal_lm_loss  # noqa: F401  (the reference's path)
 from ray_tpu_torch.ops.flash_attention import flash_attention, xla_attention
 
 

@@ -25,6 +25,9 @@ from torch.utils.checkpoint import checkpoint
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The reference's Pallas tile defaults, kept for its signature only.
+DEFAULT_BLOCK_Q = 1024
+DEFAULT_BLOCK_K = 1024
 
 
 # --------------------------------------------------------------------------- plain attention
@@ -287,14 +290,20 @@ def flash_attention(
     v,
     causal: bool = True,
     sm_scale: Optional[float] = None,
+    block_q: int = DEFAULT_BLOCK_Q,
+    block_k: int = DEFAULT_BLOCK_K,
     backend: Optional[str] = None,
+    interpret: bool = False,
 ):
     """Multi-head attention, (batch, heads, seq, head_dim) layout.
 
     backend: "flash" (the default) | "xla" | "blockwise". "flash" runs the CUDA
     kernels on CUDA tensors at any seq length, and their plain versions on CPU
-    tensors. q, k and v must be contiguous.
+    tensors. q, k and v must be contiguous. ``block_q``, ``block_k`` and
+    ``interpret`` are the reference's Pallas knobs, taken in its positions
+    and ignored: the CUDA kernels fix their own tiles.
     """
+    del block_q, block_k, interpret
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     backend = backend or "flash"

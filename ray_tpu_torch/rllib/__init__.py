@@ -13,8 +13,9 @@ TD3/DDPG and Ape-X DQN (replay shards on CPU actors). Offline, from JSON
 input (``offline``): MARWIL, BC and CQL. Multi-agent: ``MultiAgentEnv`` and
 ``make_multi_agent``, and policy maps (``.multi_agent()``) for PPO, DQN and
 SAC, one learner per policy on the GPU and ``MultiAgentEnvRunner`` CPU actors.
-Not ported yet: the Data-backed ``offline.DatasetReader`` (ROADMAP.md Queue 1
-item 11). The JAX package's ``JaxLearner`` is ``TorchLearner`` here.
+Offline input may also be a ``ray_tpu_torch.data`` Dataset
+(``offline.DatasetReader``). The JAX package's ``JaxLearner`` is
+``TorchLearner`` here.
 """
 
 from ray_tpu_torch.rllib.algorithms.a2c import A2C, A2CConfig

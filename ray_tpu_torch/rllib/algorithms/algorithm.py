@@ -35,8 +35,6 @@ import numpy as np
 from ray_tpu_torch._private.accelerators.gpu import default_device
 from ray_tpu_torch.rllib.env.env_runner import is_discrete
 
-_DATASET = ("a Dataset as offline input (DatasetReader) is not ported yet: ROADMAP.md "
-            "Queue 1 item 11 (Data)")
 # What each env-runner actor holds: one CPU, and its forward runs one thread.
 RUNNER_CPUS = 1
 
@@ -230,7 +228,7 @@ class AlgorithmConfig:
 
     def build_input_reader(self, batch_size: int, seed: int = 0):
         """Resolve `input_` into an InputReader (the offline plugin seam)."""
-        from ray_tpu_torch.rllib.offline import InputReader, JsonReader
+        from ray_tpu_torch.rllib.offline import DatasetReader, InputReader, JsonReader
 
         src = self.input_
         if src is None:
@@ -240,7 +238,7 @@ class AlgorithmConfig:
         if isinstance(src, (str, list, tuple)):
             return JsonReader(src, batch_size=batch_size, seed=seed)
         if hasattr(src, "iter_batches"):  # a Dataset, known by its interface
-            raise NotImplementedError(_DATASET)
+            return DatasetReader(src, batch_size=batch_size)
         if callable(src):
             return src()
         raise TypeError(f"unsupported offline input source: {type(src)}")

@@ -13,8 +13,8 @@ calls `dist.init_process_group` (`train/torch/config.py:113`).
 
 Inference from a checkpoint: `TorchPredictor` (the JAX package's
 `JaxPredictor`) scores numpy batches on the GPU; `BatchPredictor` holds a
-checkpoint and a predictor class, and scoring a Dataset with it waits for the
-Data library (ROADMAP.md Queue 1 item 11).
+checkpoint and a predictor class and scores a ``ray_tpu_torch.data`` Dataset
+on an actor pool whose actors share the GPU (``num_gpus_per_worker``).
 """
 
 from ray_tpu_torch.air.config import (  # re-exported for parity convenience

@@ -76,8 +76,9 @@ class DataParallelTrainer(BaseTrainer):
         ray_tpu_torch.data Datasets become `DataIterator`s over ONE shared
         executing stream — blocks are produced DURING training and assigned
         to workers on demand, so epoch ingest overlaps the train loop and
-        nothing materializes up front. Anything else is replicated to every
-        worker.
+        nothing materializes up front; in a GPU worker the shard's
+        ``iter_torch_batches()`` gives tensors on the worker's device.
+        Anything else is replicated to every worker.
         """
         if not self.datasets:
             return None

@@ -9,8 +9,10 @@ predictor ONCE per worker).
 ``TorchPredictor`` stands where ``JaxPredictor`` does: its params go to the
 device once, at construction (the GPU unless ``device`` names another, and
 raising when there is none), and each ``predict`` runs ``apply_fn`` eagerly
-under ``torch.inference_mode()``, where the JAX predictor jits it. Scoring a
-Dataset (``BatchPredictor.predict``) waits for the Data library.
+under ``torch.inference_mode()``, where the JAX predictor jits it.
+``BatchPredictor.predict`` scores a Dataset on an actor pool whose actors
+hold a share of ``GPU`` each (``num_gpus_per_worker``), where the JAX
+package's pool asks for no accelerator.
 """
 
 from __future__ import annotations
@@ -22,10 +24,6 @@ import torch
 
 from ray_tpu_torch._private.accelerators.gpu import resolve_device
 from ray_tpu_torch.air.checkpoint import Checkpoint
-
-_DATA = ("BatchPredictor.predict (scoring a Dataset) is not ported yet: ROADMAP.md Queue 1 "
-         "item 11 (Data)")
-
 
 class Predictor:
     """Interface: construct from a Checkpoint, score numpy batches."""
@@ -52,6 +50,10 @@ def _to_device(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, torch.Tensor):
         return tree.detach().to(device)
     return torch.as_tensor(np.asarray(tree), device=device)
+
+
+def _writable(a: np.ndarray) -> np.ndarray:
+    return a if a.flags.writeable else a.copy()
 
 
 def _to_numpy(out: Any) -> np.ndarray:
@@ -111,7 +113,9 @@ class TorchPredictor(Predictor):
                 axis=1,
             ), device=self.device)
         else:
-            feats = {k: torch.as_tensor(np.asarray(v), device=self.device)
+            # A Dataset's batches are read-only views of the object store;
+            # torch takes writable memory.
+            feats = {k: torch.as_tensor(_writable(np.asarray(v)), device=self.device)
                      for k, v in batch.items()}
         with torch.inference_mode():
             out = self._apply(self._params, feats)
@@ -120,8 +124,8 @@ class TorchPredictor(Predictor):
 
 class BatchPredictor:
     """Distributed batch inference: checkpoint + predictor class -> scored
-    Dataset. ``from_checkpoint`` holds what each pool actor would build its
-    predictor from; ``predict`` waits for the Data library."""
+    Dataset. Each pool actor builds the predictor once (weights load
+    per-worker, not per-batch) and scores a stream of blocks."""
 
     def __init__(self, checkpoint: Checkpoint,
                  predictor_cls: Type[Predictor], **predictor_kwargs):
@@ -143,6 +147,47 @@ class BatchPredictor:
         keep_columns: Optional[List[str]] = None,
         batch_size: Optional[int] = None,
         num_workers: int = 2,
+        num_gpus_per_worker: Optional[float] = None,
     ):
-        """Score `dataset` (the JAX package's arguments): not ported yet."""
-        raise NotImplementedError(_DATA)
+        """Score `dataset`, returning a Dataset of prediction columns
+        (+ `keep_columns` carried through). `feature_columns` narrows the
+        batch the predictor sees; `batch_size=None` scores whole blocks.
+
+        ``num_gpus_per_worker`` (upstream Ray's argument) is each pool
+        actor's share of ``GPU``. ``None``: the pool together holds one GPU
+        (``1 / num_workers`` each; fractions pack onto one device), or none
+        when the predictor's kwargs say ``device="cpu"``. A pool asking for
+        more GPU than the cluster has raises ``ValueError`` when it starts."""
+        ckpt = self._checkpoint
+        pred_cls = self._predictor_cls
+        pred_kwargs = self._predictor_kwargs
+        keep = list(keep_columns or [])
+        feats = list(feature_columns) if feature_columns else None
+        if num_gpus_per_worker is None:
+            device = pred_kwargs.get("device")
+            on_cpu = device is not None and torch.device(device).type == "cpu"
+            num_gpus_per_worker = 0 if on_cpu else 1 / num_workers
+
+        class _Scorer:
+            def __init__(self):
+                self._p = pred_cls.from_checkpoint(ckpt, **pred_kwargs)
+
+            def __call__(self, batch: Dict[str, np.ndarray]):
+                sub = {k: batch[k] for k in feats} if feats else batch
+                out = dict(self._p.predict(sub))
+                for c in keep:
+                    if c in out:
+                        raise ValueError(
+                            f"keep column {c!r} collides with a prediction "
+                            "column"
+                        )
+                    out[c] = batch[c]
+                return out
+
+        return dataset.map_batches(
+            _Scorer,
+            compute="actors",
+            num_actors=num_workers,
+            batch_size=batch_size,
+            num_gpus=num_gpus_per_worker,
+        )

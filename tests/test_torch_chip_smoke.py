@@ -272,10 +272,18 @@ def test_rl_apex_and_offline_run_on_the_cpu(rl_on_the_cpu, monkeypatch):
     assert [s["cuda_visible_devices"] for s in apex["placement"]["shards"]] == ["", ""]
     assert apex["worker_epsilons"] == apex["epsilon_schedule"]
     monkeypatch.setattr(chip_smoke, "OFFLINE_EPISODES", 4)
+    # Four short episodes hold fewer rows than a 512-row batch, which a
+    # Dataset's reader (drop_last) needs whole.
+    config = chip_smoke.offline_config
+    monkeypatch.setattr(chip_smoke, "offline_config",
+                        lambda name, path: config(name, path).training(train_batch_size=16))
     weights = params_to_numpy(MLPModule(4, 2).init(0, device="cpu"))
     lines = chip_smoke.phase_rl_offline("cpu", weights, device="cpu", iters=1, bars=False)
     rl_on_the_cpu += [apex] + lines
-    assert [x["algo"] for x in lines] == ["bc", "marwil", "cql"]
+    assert [(x["algo"], x["data"]) for x in lines] == [
+        ("bc", "ppo"), ("marwil", "mixed"), ("cql", "cql"), ("bc", "ppo_dataset")]
+    assert [x["reader"] for x in lines] == ["JsonReader"] * 3 + ["DatasetReader"]
+    assert lines[-1]["dataset_rows"] > 0
     for line in lines:
         assert RL_LINE_KEYS <= set(line) and line["placement"]["runners"] == []
         assert [r["cuda_visible_devices"] for r in line["placement"]["evaluation_runners"]] == [""]
@@ -545,16 +553,10 @@ def counted_cpu_attention(monkeypatch):
     import importlib
 
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")  # the module
-
-    def counting(fn, wrapper):
-        def call(*args):
-            wrapper.launches += 1
-            return fn(*args)
-
-        return call
-
-    monkeypatch.setattr(fa, "_fwd", counting(fa._fwd, fa._fwd_cuda))
-    monkeypatch.setattr(fa, "_bwd", counting(fa._bwd, fa._bwd_cuda))
+    # Set to themselves first, so monkeypatch restores them afterwards.
+    monkeypatch.setattr(fa, "_fwd", fa._fwd)
+    monkeypatch.setattr(fa, "_bwd", fa._bwd)
+    chip_smoke.count_plain_attention()
     fa.reset_launch_counts()
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -586,14 +588,15 @@ def test_predictor_runs_on_the_cpu(counted_cpu_attention, capsys):
     assert launches == {"flash_fwd": 3 * cfg.n_layer, "flash_bwd": 0}
     # The kernels line: the predictor on the forward's paths only.
     per_path = {p: 12 for p in chip_smoke.KERNEL_PATHS}
-    fwd = _kernel(launches_per_path={**per_path, "predictor": launches["flash_fwd"]})
+    fwd = _kernel(launches_per_path={**per_path, "predictor": launches["flash_fwd"],
+                                     "batch_predictor": 12})
     bwd = _kernel(name="flash_bwd", launches_per_path={**per_path, "predictor": 0})
     paths = chip_smoke.KERNEL_PATHS_BY_KERNEL
     assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd]}, paths) == []
     bwd_there = _kernel(name="flash_bwd", launches_per_path={**per_path, "predictor": 4})
     assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd_there]}, paths) == [
         "flash_bwd: launched on predictor"]
-    no_fwd = _kernel(launches_per_path={**per_path, "predictor": 0})
+    no_fwd = _kernel(launches_per_path={**per_path, "predictor": 0, "batch_predictor": 12})
     assert chip_smoke.check_kernels_line({"kernels": [no_fwd, bwd]}, paths) == [
         "flash_fwd: no launch on predictor"]
 
@@ -646,3 +649,60 @@ def test_rl_multi_agent_runs_on_the_cpu(monkeypatch):
     assert not down["leftover_session_dirs"] and not down["leftover_worker_pids"]
     assert set(down["run_worker_pids"]) >= set(ppo["restored_worker_pids"])
     assert not any(down["attention_kernel_launches"].values())
+
+
+# ------------------------------------------------------------------ Data
+def test_data_phases_run_on_the_cpu(monkeypatch, capsys):
+    # batch_predictor and data_ingest at nano size on the CPU (the pool's
+    # actors and the train worker count their plain attention calls as
+    # launches), then their runtime's shutdown check.
+    import json
+
+    from ray_tpu_torch._private.accelerators import gpu
+    from ray_tpu_torch.models import GPTConfig
+
+    monkeypatch.setattr(gpu, "default_device", lambda: torch.device("cpu"))
+    cfg = GPTConfig.nano()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.run_data_phases("cpu", cfg=cfg, device="cpu", rows=8, batch=2,
+                                              seq=32)
+    finally:
+        torch.set_num_threads(threads)
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    by_phase = {x["phase"]: x for x in lines}
+    assert [x["phase"] for x in lines] == ["batch_predictor", "data_ingest", "data_shutdown"]
+    bp, ingest = by_phase["batch_predictor"], by_phase["data_ingest"]
+    # Four calls of 2 rows over two actors, each call the forward once a layer.
+    assert bp["blocks"] == 4 and len(bp["actors"]) == 2
+    assert bp["launches_per_call"] == [{"flash_fwd": cfg.n_layer, "flash_bwd": 0}] * 4
+    assert bp["predictions_shape"] == [8, 32] and bp["bit_equal_to_in_process"]
+    assert sum(a["calls"] for a in bp["actors"]) == 4
+    assert all(a["visible"] == "" and a["device"] == "cpu" for a in bp["actors"])
+    # Four steps of 2 rows, 12 + 12 launches a step at nano's depth.
+    assert ingest["batch_devices"] == ["cpu"] * 4 and ingest["batch_dtypes"] == ["int32"] * 4
+    assert ingest["launches_per_step"] == [{"flash_fwd": cfg.n_layer,
+                                            "flash_bwd": cfg.n_layer}] * 4
+    assert ingest["first_loss_abs_err"] <= chip_smoke.LOSS_TOL
+    assert ingest["first_rows_are_the_first_block"]
+    assert by_phase["data_shutdown"]["leftover_worker_pids"] == []
+    assert launches == {"batch_predictor": {"flash_fwd": 4 * cfg.n_layer, "flash_bwd": 0},
+                        "data_ingest": {"flash_fwd": 4 * cfg.n_layer,
+                                        "flash_bwd": 4 * cfg.n_layer}}
+    # The kernels line: batch_predictor on the forward only, data_ingest on both.
+    per_path = {p: 12 for p in chip_smoke.KERNEL_PATHS}
+    paths = chip_smoke.KERNEL_PATHS_BY_KERNEL
+    fwd = _kernel(launches_per_path={**per_path, "predictor": 12,
+                                     **{k: v["flash_fwd"] for k, v in launches.items()}})
+    bwd = _kernel(name="flash_bwd", launches_per_path={
+        **per_path, "predictor": 0, **{k: v["flash_bwd"] for k, v in launches.items()}})
+    assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd]}, paths) == []
+    no_ingest = _kernel(name="flash_bwd", launches_per_path={
+        **per_path, "predictor": 0, "batch_predictor": 0, "data_ingest": 0})
+    assert chip_smoke.check_kernels_line({"kernels": [fwd, no_ingest]}, paths) == [
+        "flash_bwd: no launch on data_ingest"]
+    bwd_in_pool = _kernel(name="flash_bwd", launches_per_path={
+        **per_path, "predictor": 0, "batch_predictor": 2})
+    assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd_in_pool]}, paths) == [
+        "flash_bwd: launched on batch_predictor"]

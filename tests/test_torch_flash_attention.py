@@ -151,3 +151,15 @@ def test_launch_errors_are_decoded(err, match):
     _raise_on(0, "flash_fwd")
     with pytest.raises(RuntimeError, match=match):
         _raise_on(err, "flash_fwd")
+
+
+def test_reference_signature_positions(qkvg):
+    # The reference's order: causal, sm_scale, block_q, block_k, backend,
+    # interpret. The port takes the tiling knobs in those positions and
+    # ignores them; backend stays the 8th argument.
+    q, k, v, _ = qkvg
+    out = flash_attention(_t(q), _t(k), _t(v), True, SCALE, 128, 128, "xla", False)
+    ref = jax_flash(*map(jnp.asarray, (q, k, v)), True, SCALE, 128, 128, "xla", False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
+    flash = flash_attention(_t(q), _t(k), _t(v), True, SCALE, 64, 32, None, True)
+    np.testing.assert_allclose(flash.numpy(), np.asarray(ref), atol=2e-5)

@@ -139,3 +139,31 @@ def test_dropout_is_seeded_and_survives_recompute(weights, tokens):
     for other in grads[1:]:
         for a, b in zip(grads[0], other):
             torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("call", ["positional", "keyword"])
+def test_reference_signature(weights, tokens, call):
+    # The JAX package's forward/loss_fn signature, shared by every model
+    # family: (..., attention_fn, dropout, mesh, num_microbatches, return_aux).
+    jcfg, tcfg = _configs()
+    params = params_from_numpy(weights, "cpu")
+    x, jx = torch.as_tensor(tokens[:, :-1]), jnp.asarray(tokens[:, :-1])
+    if call == "positional":
+        logits, aux = tgpt.forward(params, x, tcfg, None, None, None, 1, True)
+        ref, ref_aux = jgpt.forward(weights, jx, jcfg, None, None, None, 1, True)
+        loss = tgpt.loss_fn(params, {"tokens": torch.as_tensor(tokens)}, tcfg, None, None, None, 1)
+        ref_loss = jgpt.loss_fn(weights, {"tokens": jnp.asarray(tokens)}, jcfg, None, None, None, 1)
+        # num_microbatches binds before return_aux: (2, False) gives logits alone.
+        alone = tgpt.forward(params, x, tcfg, None, None, None, 2, False)
+        assert isinstance(alone, torch.Tensor)
+        np.testing.assert_allclose(alone.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    else:
+        kw = dict(attention_fn=None, mesh=None, num_microbatches=1)
+        logits, aux = tgpt.forward(params, x, tcfg, return_aux=True, dropout_seed=None, **kw)
+        ref, ref_aux = jgpt.forward(weights, jx, jcfg, return_aux=True, dropout_rng=None, **kw)
+        loss = tgpt.loss_fn(params, {"tokens": torch.as_tensor(tokens)}, tcfg, **kw)
+        ref_loss = jgpt.loss_fn(weights, {"tokens": jnp.asarray(tokens)}, jcfg, **kw)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    assert aux.shape == np.shape(ref_aux) == () and aux.dtype == torch.float32
+    np.testing.assert_allclose(aux.item(), float(ref_aux), atol=1e-5)
+    np.testing.assert_allclose(loss.item(), float(ref_loss), atol=1e-5)

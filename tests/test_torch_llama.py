@@ -196,3 +196,28 @@ def test_dots_remat_saves_between_full_and_none(name, tokens):
         for a, b in zip(grads, ref):
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, err_msg=label)
     assert held["full"] < held["dots"] < held["none"], held
+
+
+@pytest.mark.parametrize("call", ["positional", "keyword"])
+def test_reference_signature(weights, tokens, call):
+    # The JAX package's forward/loss_fn signature, shared by every model
+    # family: (..., attention_fn, dropout, mesh, num_microbatches, return_aux).
+    jcfg, tcfg = _configs()
+    w = weights["gqa"]
+    params = params_from_numpy(w, "cpu")
+    x, jx = torch.as_tensor(tokens[:, :-1]), jnp.asarray(tokens[:, :-1])
+    if call == "positional":
+        logits, aux = tllama.forward(params, x, tcfg, None, None, None, 1, True)
+        ref, ref_aux = jllama.forward(w, jx, jcfg, None, None, None, 1, True)
+        loss = tllama.loss_fn(params, {"tokens": torch.as_tensor(tokens)}, tcfg, None, None, None, 1)
+        ref_loss = jllama.loss_fn(w, {"tokens": jnp.asarray(tokens)}, jcfg, None, None, None, 1)
+    else:
+        kw = dict(attention_fn=None, mesh=None, num_microbatches=1)
+        logits, aux = tllama.forward(params, x, tcfg, return_aux=True, dropout_seed=None, **kw)
+        ref, ref_aux = jllama.forward(w, jx, jcfg, return_aux=True, dropout_rng=None, **kw)
+        loss = tllama.loss_fn(params, {"tokens": torch.as_tensor(tokens)}, tcfg, **kw)
+        ref_loss = jllama.loss_fn(w, {"tokens": jnp.asarray(tokens)}, jcfg, **kw)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    assert aux.shape == np.shape(ref_aux) == () and aux.dtype == torch.float32
+    np.testing.assert_allclose(aux.item(), float(ref_aux), atol=1e-5)
+    np.testing.assert_allclose(loss.item(), float(ref_loss), atol=1e-5)

@@ -58,6 +58,45 @@ def test_importing_every_module_loads_no_jax_and_no_ray_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_data_runs_without_pyarrow_and_pandas(tmp_path):
+    # The card's machine has neither: importing ray_tpu_torch.data and every
+    # numpy-block path must not need them. This process blocks them in
+    # sys.modules; its workers find stubs that raise on import.
+    for name in ("pyarrow", "pandas"):
+        (tmp_path / f"{name}.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    code = (
+        "import sys\n"
+        "sys.modules['pyarrow'] = None\n"
+        "sys.modules['pandas'] = None\n"
+        "import numpy as np\n"
+        "import ray_tpu_torch\n"
+        "from ray_tpu_torch import data as rd\n"
+        "ray_tpu_torch.init(num_cpus=2)\n"
+        "try:\n"
+        "    class Add:\n"
+        "        def __call__(self, b):\n"
+        "            return {'id': b['id'] + 1, 'g': b['id'] % 3}\n"
+        "    ds = rd.range(40, parallelism=4).map_batches(Add, compute='actors', num_actors=1)\n"
+        "    ds = ds.random_shuffle(seed=1).sort('id')\n"
+        "    assert [r['id'] for r in ds.take_all()] == list(range(1, 41))\n"
+        "    assert len(ds.groupby('g').count().take_all()) == 3\n"
+        "    xs = rd.from_numpy(np.arange(12.0).reshape(6, 2)).iter_torch_batches(\n"
+        "        batch_size=4, device='cpu')\n"
+        "    assert [tuple(b['data'].shape) for b in xs] == [(4, 2), (2, 2)]\n"
+        "    assert rd.from_items([{'a': 1}, {'a': 2}]).sum('a') == 3\n"
+        "finally:\n"
+        "    ray_tpu_torch.shutdown()\n"
+        "assert sys.modules['pyarrow'] is None and sys.modules['pandas'] is None\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), ROOT])
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
 def test_sources_name_no_jax_and_no_ray_tpu():
     banned = re.compile(r"^\s*(import jax|from jax|import ray_tpu(?!_torch)|from ray_tpu(?!_torch)"
                         r"|import transformers|from transformers|import optax|from optax)", re.M)

@@ -4,8 +4,13 @@
   checkpoint: the linear case of tests/test_batch_predictor.py (with
   ``feature_columns`` and ``__call__``) and a nano GPT's per-token NLL
   (weights from JAX through ``params_from_numpy``), 1e-5 in f32; the missing
-  key's error word for word; ``device=None`` raising without a GPU;
-  ``BatchPredictor.predict`` raising with ROADMAP.md's item 11.
+  key's error word for word; ``device=None`` raising without a GPU.
+- ``BatchPredictor.predict`` over a Dataset: the JAX package's pool of
+  ``JaxPredictor`` actors and the port's pool of ``TorchPredictor(device=
+  "cpu")`` actors (``num_gpus_per_worker=0``) give each row the same nano
+  GPT NLLs (1e-5 in f32), ``keep_columns`` carried through; with the default
+  ``num_gpus_per_worker`` on two logical GPUs' worth of one card, the pool's
+  actors share device "0" and hold the node's whole ``GPU`` while they live.
 - ``save_pytree``/``load_pytree``: nested dicts, lists and tuples of f32 and
   bf16 tensors, numpy arrays and scalars, equal bit for bit with their types
   and dtypes; a ``pytree.pkl`` the JAX package's fallback writes; the
@@ -19,6 +24,7 @@ import socket
 import subprocess
 import sys
 import textwrap
+import time
 
 import jax
 import jax.numpy as jnp
@@ -116,13 +122,94 @@ def test_predictor_on_the_gpu_raises_without_one(monkeypatch):
         TorchPredictor(_linear_params(), _apply_torch)
 
 
+def _nano_rows(n=8, seq=16):
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, 255, (n, seq + 1)).astype(np.int32)
+    return [{"tokens": t[:-1], "targets": t[1:], "id": i} for i, t in enumerate(tokens)]
+
+
 def test_batch_predictor_scoring_waits_for_data():
-    bp = BatchPredictor.from_checkpoint(Checkpoint(data_dict={"params": _linear_params()}),
-                                        TorchPredictor, apply_fn=_apply_torch,
-                                        feature_columns=["a", "b"])
-    assert isinstance(bp, BatchPredictor)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1 item 11 \(Data\)"):
-        bp.predict(object(), keep_columns=["id"], num_workers=2)
+    # The name is the one this case had while the Data library was unported;
+    # it now scores a Dataset through both packages' actor pools.
+    import ray_tpu
+    import ray_tpu_torch
+    from ray_tpu import data as jdata
+    from ray_tpu.train import BatchPredictor as JaxBatchPredictor
+    from ray_tpu_torch import data as tdata
+
+    jcfg = jgpt.GPTConfig.nano(dtype=jnp.float32)
+    tcfg = tgpt.GPTConfig.nano(dtype=torch.float32)
+    weights = jax.tree.map(np.asarray, jgpt.init_params(jcfg, jax.random.PRNGKey(0)))
+    rows = _nano_rows()
+
+    def jax_nll(params, b):
+        logits = jgpt.forward(params, b["tokens"], jcfg)
+        target = jnp.take_along_axis(logits, b["targets"][..., None], -1)[..., 0]
+        return jax.nn.logsumexp(logits, -1) - target
+
+    ray_tpu.init(num_cpus=4)
+    try:
+        want = JaxBatchPredictor.from_checkpoint(
+            JaxCheckpoint(data_dict={"params": weights}), JaxPredictor, apply_fn=jax_nll,
+        ).predict(jdata.from_items(rows, parallelism=4), feature_columns=["tokens", "targets"],
+                  keep_columns=["id"], batch_size=2, num_workers=2).take_all()
+    finally:
+        ray_tpu.shutdown()
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        bp = BatchPredictor.from_checkpoint(
+            Checkpoint(data_dict={"params": params_from_numpy(weights, "cpu")}), TorchPredictor,
+            apply_fn=chip_smoke.next_token_nll_fn(tcfg), device="cpu")
+        got = bp.predict(tdata.from_items(rows, parallelism=4),
+                         feature_columns=["tokens", "targets"], keep_columns=["id"],
+                         batch_size=2, num_workers=2, num_gpus_per_worker=0).take_all()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert len(got) == len(want) == len(rows)
+    assert all(sorted(r) == ["id", "predictions"] for r in got)
+    got = {int(r["id"]): r["predictions"] for r in got}
+    want = {int(r["id"]): r["predictions"] for r in want}
+    assert sorted(got) == sorted(want) == list(range(len(rows)))
+    for i in got:
+        assert got[i].shape == (16,) and got[i].dtype == np.float32
+        np.testing.assert_allclose(got[i], want[i], rtol=0, atol=ATOL)
+
+
+def test_batch_predictor_shares_one_gpu_by_default():
+    # num_gpus_per_worker=None: the pool together holds one GPU, 1/2 each,
+    # packed onto one device id. Logical GPUs: no CUDA is touched.
+    import ray_tpu_torch
+    from ray_tpu_torch import data as tdata
+
+    class Where(Predictor):
+        @classmethod
+        def from_checkpoint(cls, checkpoint, **kwargs):
+            return cls()
+
+        def predict(self, batch):
+            seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+            free = ray_tpu_torch.available_resources().get("GPU", 0.0)
+            return {"visible": np.array([seen] * len(batch["id"])),
+                    "gpu_free": np.full(len(batch["id"]), free), "pid": np.full(len(batch["id"]), os.getpid())}
+
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    try:
+        bp = BatchPredictor.from_checkpoint(Checkpoint(data_dict={"params": {}}), Where)
+        rows = bp.predict(tdata.range(16, parallelism=4), batch_size=4,
+                          num_workers=2).take_all()
+        assert len(rows) == 16
+        assert {str(r["visible"]) for r in rows} == {"0"}
+        assert {float(r["gpu_free"]) for r in rows} == {0.0}
+        assert len({int(r["pid"]) for r in rows}) == 2
+        # The pool's actors are killed when the run ends; their shares return.
+        deadline = time.monotonic() + 30
+        while ray_tpu_torch.available_resources().get("GPU") != 1.0:
+            assert time.monotonic() < deadline, ray_tpu_torch.available_resources()
+            time.sleep(0.1)
+        with pytest.raises(ValueError, match="asks for 3 GPU .* cluster has 1"):
+            bp.predict(tdata.range(4), num_workers=3, num_gpus_per_worker=1).take_all()
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 # ------------------------------------------------------------------ pytree checkpoints

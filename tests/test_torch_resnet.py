@@ -171,3 +171,37 @@ def test_bf16_conv_output_rounding_gap(kind):
     print(f"resnet nano {kind} bf16 loss gap port - jax: {gap:.3e} {losses}")
     np.testing.assert_allclose(losses["port_f32"], losses["jax_f32"], rtol=1e-5)
     assert abs(gap) < 1e-4
+
+
+@pytest.mark.parametrize("call", ["positional", "keyword"])
+def test_reference_signature(weights, call):
+    # The JAX package's forward/loss_fn signature, which ResNet shares with
+    # the LM families: num_microbatches is ignored, return_aux gives a zero.
+    jcfg, tcfg = _configs("basic")
+    batch = _batch(32)
+    params = params_from_numpy(weights["basic"], "cpu")
+    tb = {k: torch.as_tensor(v) for k, v in batch.items()}
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    if call == "positional":
+        logits, aux = tresnet.forward(params, tb["images"], tcfg, None, None, None, 2, True)
+        ref, ref_aux = jresnet.forward(weights["basic"], jb["images"], jcfg, None, None, None, 2, True)
+        loss = tresnet.loss_fn(params, tb, tcfg, None, None, None, 2)
+        ref_loss = jresnet.loss_fn(weights["basic"], jb, jcfg, None, None, None, 2)
+    else:
+        kw = dict(attention_fn=None, mesh=None, num_microbatches=2)
+        logits, aux = tresnet.forward(params, tb["images"], tcfg, return_aux=True, **kw)
+        ref, ref_aux = jresnet.forward(weights["basic"], jb["images"], jcfg, return_aux=True, **kw)
+        loss = tresnet.loss_fn(params, tb, tcfg, **kw)
+        ref_loss = jresnet.loss_fn(weights["basic"], jb, jcfg, **kw)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    assert aux.shape == np.shape(ref_aux) == () and aux.item() == float(ref_aux) == 0.0
+    np.testing.assert_allclose(loss.item(), float(ref_loss), atol=1e-5)
+
+
+def test_init_shapes_match(weights):
+    shapes = tresnet.init_shapes(_configs("basic")[1])
+    flat, ref = _flatten(shapes), _flatten(jresnet.init_shapes(_configs("basic")[0]))
+    assert sorted(flat) == sorted(ref)
+    for name, leaf in flat.items():
+        assert leaf.device.type == "meta"
+        assert tuple(leaf.shape) == tuple(ref[name].shape) and leaf.dtype == torch.float32

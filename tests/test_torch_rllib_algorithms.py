@@ -225,11 +225,13 @@ def test_what_is_not_ported_raises(monkeypatch):
     # Multi-agent training (ROADMAP.md item 7d) is ported now: the shared
     # replay iteration runs on a stub algorithm (tests/test_torch_rllib_
     # multiagent.py holds it against the JAX package's).
-    # Offline input is ported, but not from a Data Dataset (known by its
-    # iter_batches): that waits for item 11.
+    # Offline input from a Data Dataset (known by its iter_batches) is
+    # ported too (item 11): it resolves to a DatasetReader.
+    from ray_tpu_torch.rllib.offline import DatasetReader
+
     dataset = type("Dataset", (), {"iter_batches": lambda self, **kw: iter(())})()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        PPOConfig().offline_data(input_=dataset).build_input_reader(batch_size=8)
+    reader = PPOConfig().offline_data(input_=dataset).build_input_reader(batch_size=8)
+    assert isinstance(reader, DatasetReader) and reader.dataset is dataset
     with pytest.raises(ValueError, match="torch"):
         PPOConfig().framework("jax")
     import types
@@ -278,6 +280,8 @@ def test_exports_are_the_jax_packages_less_multi_agent():
     assert set(rllib.__all__) == want and len(rllib.__all__) == len(jax_rllib.__all__)
     assert {"MultiAgentEnv", "make_multi_agent", "MultiAgentEnvRunner"} <= set(rllib.__all__)
     assert all(hasattr(rllib, name) for name in rllib.__all__)
+    import ray_tpu.rllib.offline as jax_offline
     import ray_tpu_torch.rllib.offline as offline
 
-    assert offline.__all__ == ["InputReader", "JsonReader", "JsonWriter"]  # no DatasetReader
+    # DatasetReader came with Data: offline's exports are the JAX package's.
+    assert offline.__all__ == jax_offline.__all__

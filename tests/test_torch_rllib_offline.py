@@ -10,7 +10,8 @@ package's, on the CPU, in f32, with inputs from a numpy seed.
 - One ``training_step`` of each against the JAX package's, both reading one
   JSON file, written once by the JAX package's writer and once by the
   port's: weights within 1e-5, MARWIL's advantage norm and the counters.
-- Input the port cannot read yet: a Dataset raises naming ROADMAP.md item 11.
+- A Dataset as input: ``build_input_reader`` gives a ``DatasetReader``,
+  which cycles the same batches as the JAX package's over the same rows.
 - Through the port's runtime (learner on the CPU): BC learns CartPole from
   expert JSON (tests/test_rllib_offline.py:124's bar), CQL learns the one-step
   task (tests/test_rllib_extras.py:344's bar), MARWIL's state round-trips.
@@ -33,7 +34,7 @@ from ray_tpu_torch.rllib.algorithms import bc as tbc
 from ray_tpu_torch.rllib.algorithms import cql as tcql
 from ray_tpu_torch.rllib.algorithms import marwil as tmarwil
 from ray_tpu_torch.rllib.core import rl_module as trl
-from ray_tpu_torch.rllib.offline import InputReader, JsonReader, JsonWriter
+from ray_tpu_torch.rllib.offline import DatasetReader, InputReader, JsonReader, JsonWriter
 from torch_rllib_parity import (  # noqa: F401 (one_thread is an autouse fixture)
     assert_loss_matches,
     assert_trees_close,
@@ -135,8 +136,10 @@ def test_input_sources_resolve_as_in_the_jax_package(tmp_path):
     assert cfg.offline_data(input_=reader).build_input_reader(8) is reader
     assert cfg.offline_data(input_=lambda: reader).build_input_reader(8) is reader
     assert isinstance(reader, InputReader)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        cfg.offline_data(input_=_Dataset()).build_input_reader(8)
+    ds = _Dataset()
+    got = cfg.offline_data(input_=ds).build_input_reader(8)
+    assert isinstance(got, DatasetReader) and isinstance(got, InputReader)
+    assert got.dataset is ds and got.batch_size == 8
     with pytest.raises(TypeError, match="unsupported offline input"):
         cfg.offline_data(input_=3).build_input_reader(8)
 
@@ -261,6 +264,59 @@ def test_bc_learns_from_expert_json(port, tmp_path):
         assert ev["episode_return_mean"] > 150, ev
         placement = port.get(algo._eval_runner.placement.remote())
         assert placement["cuda_visible_devices"] == "" and placement["device"] == "cpu"
+    finally:
+        algo.stop()
+
+
+def _transition_rows(episodes):
+    return [{"obs": np.asarray(obs, np.float32), "actions": act}
+            for ep in episodes for obs, act in zip(ep["obs"], ep["actions"])]
+
+
+def test_dataset_reader_cycles_as_the_jax_packages(port):
+    # tests/test_rllib_offline.py:95's rows: 80 rows asked of a 30-row
+    # Dataset cycle through epochs; each package's reader over its own
+    # Dataset of the same rows serves the same batches, in order.
+    import ray_tpu
+    from ray_tpu import data as jdata
+    from ray_tpu.rllib.offline import DatasetReader as JaxDatasetReader
+    from ray_tpu_torch import data as tdata
+
+    items = [{"obs": np.full(4, i, np.float32), "actions": i % 2} for i in range(30)]
+    ours = DatasetReader(tdata.from_items(items), batch_size=16)
+    got = [ours.next() for _ in range(5)]
+    port.shutdown()
+    ray_tpu.init(num_cpus=4)
+    try:
+        theirs = JaxDatasetReader(jdata.from_items(items), batch_size=16)
+        want = [theirs.next() for _ in range(5)]
+    finally:
+        ray_tpu.shutdown()
+        port.init(num_cpus=4)
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w) == ["actions", "obs"]
+        for k in g:
+            assert g[k].dtype == w[k].dtype
+            np.testing.assert_array_equal(g[k], w[k])
+    assert sum(len(b["actions"]) for b in got) == 80
+
+
+def test_bc_learns_from_ray_data_dataset(port):
+    # tests/test_rllib_offline.py:141: BC fed from a Dataset of the expert's
+    # transition rows through DatasetReader; the same bar.
+    from ray_tpu_torch import data as tdata
+
+    ds = tdata.from_items(_transition_rows(_episodes(30)))
+    algo = (tbc.BCConfig().environment(chip_smoke.CartPole)
+            .training(lr=1e-3, train_batch_size=512, updates_per_iteration=20)
+            .offline_data(input_=ds).learners(num_gpus_per_learner=0).build())
+    try:
+        assert isinstance(algo.reader, DatasetReader)
+        for _ in range(10):
+            m = algo.train()
+        assert np.isfinite(m["total_loss"])
+        ev = algo.evaluate(num_episodes=8)
+        assert ev["episode_return_mean"] > 150, ev
     finally:
         algo.stop()
 
