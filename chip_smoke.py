@@ -54,6 +54,22 @@ exits non-zero and prints no result.
    ``session.get_dataset_shard("train").iter_torch_batches(batch_size=16)``:
    the batches CUDA tensors, 12 + 12 launches a step, the first loss against
    ``first_step_reference`` on the rows the worker got; ``data_shutdown``.
+   Then Serve, on a runtime of its own: ``serve``, the same params behind
+   ``serve.start(http_options={"port": 0})`` in a deployment of two replicas
+   holding 0.5 GPU each (one device id), whose ``__call__`` is an async
+   ``@serve.batch(max_batch_size=16)`` method scoring rows of S + 1 token ids
+   with ``TorchPredictor.from_checkpoint``: 128 rows as JSON POSTs from 32
+   client threads through the proxy, then through a ``DeploymentHandle``,
+   each reply's mean NLL within 1e-3 of the in-process predictor's, 12
+   forward and 0 backward launches per batch call in each replica, the batch
+   sizes summing to the requests sent, the node's ``GPU`` 0.0 free while
+   serving and 1.0 after ``serve.shutdown()``; then one multiplexed replica
+   (LRU of 2) over three GPT-2 small checkpoints asked m1, m2, m3, m1, each
+   reply against its own model's NLL, each eviction giving back at least 90%
+   of a model's bytes of ``memory_allocated``; replica start s, the
+   controller's lock hold per replica start, cold and warm latency, requests/s
+   and tokens/s over HTTP and the handle, the batch sizes formed, peak memory
+   printed; ``serve_shutdown``.
 6b. collectives and the mesh: ``collective_nccl``, every op of
    ``ray_tpu_torch.util.collective`` on a world-1 NCCL group over CUDA
    tensors, f32 and bf16, each result checked and on ``cuda:0``; then
@@ -103,9 +119,10 @@ exits non-zero and prints no result.
    gloo, 4 experts a rank, the batch replicated), its first loss and grad
    norm against the moe phase's within mesh_gang's limits and 12 + 12
    launches a rank a step, then ResNet-50 on ``{"tensor": 2}`` at B 8
-   against one rank's first step; ``elastic_reshard``, GPT-2 small (f32)
-   under ``ScalingConfig(num_workers=2, elastic=True)``, each rank stashing
-   its ``shard_for_rank`` of the params and Adam moments every step
+   against one rank's first step; ``elastic_reshard``, GPT-2 small at full
+   width and 2 of its 12 layers (f32) under ``ScalingConfig(num_workers=2,
+   elastic=True)``, each rank stashing its ``shard_for_rank`` of the params
+   and Adam moments every step
    (``stash_checkpoint(rules=)``), rank 1 killed after round 3 by a
    ``PreemptionSimulator``: the gang re-forms at world 1 from the in-memory
    mirrors, the gathered state goes back on the card (``device_put_tree``)
@@ -139,7 +156,8 @@ exits non-zero and prints no result.
    ``rl_shutdown`` (nothing left after ``shutdown()``, no attention kernel
    launched by these phases).
 10. a ``kernels`` line (launches per path: ``KERNEL_PATHS_BY_KERNEL``, the
-   predictor's and the batch predictor's (its actors' sum) forward only; rank 0's on a
+   predictor's, the batch predictor's (its actors' sum) and Serve's (its
+   replicas' sum) forward only; rank 0's on a
    gang; times at the Llama shape and of the ring's blocks with one SDPA
    call on the whole sequence beside them), checked for the keys the
    contract names,
@@ -268,8 +286,12 @@ PIPE_CTX_TIMED = 2
 # with the same limits (each rank computes its output channels' products
 # whole; the classes' logsumexp is summed across the two).
 EXPERT_GANG_TIMED, RESNET_TP_B = 2, 8
-# The elastic_reshard phase: GPT-2 small in f32 compute, ELASTIC_B rows of S
-# 1024 a step, under ScalingConfig(num_workers=2, elastic=True) (two 0.5-GPU
+# The elastic_reshard phase: GPT-2 small at full width in f32 compute, its
+# depth cut to ELASTIC_LAYERS of 12 (what it checks, a resume bit for bit and
+# the final loss against an uninterrupted run, holds at any depth; the stash,
+# digest and gloo all-reduce of each step scale with the params, and the cut
+# keeps chip_smoke.py's run inside its time limit), ELASTIC_B rows of S 1024 a
+# step, under ScalingConfig(num_workers=2, elastic=True) (two 0.5-GPU
 # ranks over gloo, {data 2}); each step every rank stashes its shard of the
 # params and Adam moments under ELASTIC_RULES (the large matrices split on
 # dim 0, the rest replicated), and a PreemptionSimulator kills rank 1 after
@@ -278,7 +300,7 @@ EXPERT_GANG_TIMED, RESNET_TP_B = 2, 8
 # resumed state can be held bit for bit to what both ranks held, and the final
 # loss to an uninterrupted one-rank run's within ELASTIC_LOSS_RTOL (the
 # data-parallel steps sum the gradients' f32 parts in another order).
-ELASTIC_STEPS, ELASTIC_KILL_ROUND, ELASTIC_B = 6, 3, 8
+ELASTIC_STEPS, ELASTIC_KILL_ROUND, ELASTIC_B, ELASTIC_LAYERS = 6, 3, 8, 2
 ELASTIC_RULES = [(r"(wte|wpe|qkv_w|out_w|fc_w|proj_w)$", ("data",)), (".*", ())]
 ELASTIC_LOSS_RTOL = 1e-5
 # A resized gang fetches every survivor's stash and mirrors (GPT-2 small's
@@ -611,10 +633,10 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 # kernels.
 KERNEL_PATHS = ("main_path", "trainer", "mesh_gang", "pipeline_gang", "context_gang", "llama",
                 "moe", "remat_dots", "expert_gang", "elastic_reshard", "data_ingest")
-# The paths each kernel must launch on: the predictor and the batch predictor's
-# pool actors (inference) run the forward only, so the backward must show 0
-# launches there.
-KERNEL_PATHS_BY_KERNEL = {"flash_fwd": KERNEL_PATHS + ("predictor", "batch_predictor"),
+# The paths each kernel must launch on: the predictor, the batch predictor's
+# pool actors and Serve's replicas (inference) run the forward only, so the
+# backward must show 0 launches there.
+KERNEL_PATHS_BY_KERNEL = {"flash_fwd": KERNEL_PATHS + ("predictor", "batch_predictor", "serve"),
                           "flash_bwd": KERNEL_PATHS}
 
 
@@ -1428,7 +1450,8 @@ def check_resume(kv, name, resumed_rank=0):
 
 
 def phase_elastic_reshard(smi, device=None):
-    """GPT-2 small (f32) under ``ScalingConfig(num_workers=2, elastic=True)``
+    """GPT-2 small (f32, ``ELASTIC_LAYERS`` deep) under
+    ``ScalingConfig(num_workers=2, elastic=True)``
     (two 0.5-GPU ranks over gloo), stashing sharded state each step, with
     rank 1 killed after round ``ELASTIC_KILL_ROUND``: the gang re-forms at
     world 1 from the in-memory mirrors and finishes. The resumed state
@@ -1444,7 +1467,8 @@ def phase_elastic_reshard(smi, device=None):
                                                PreemptionSimulator)
 
     on_cpu = device == "cpu"
-    cut = dict(n_layer=2, n_head=2, d_model=64, vocab_size=256, max_seq_len=128) if on_cpu else {}
+    cut = (dict(n_layer=2, n_head=2, d_model=64, vocab_size=256, max_seq_len=128) if on_cpu
+           else {"n_layer": ELASTIC_LAYERS})
     seq = 32 if on_cpu else S
     name = "chip_smoke_elastic_reshard"
     config = {"cut": cut, "global_batch": ELASTIC_B, "seq": seq, "steps": ELASTIC_STEPS,
@@ -1470,8 +1494,8 @@ def phase_elastic_reshard(smi, device=None):
     final, ref = r0["losses"][-1], one["losses"][-1]
     line = {"phase": "elastic_reshard", "entry": "TorchTrainer.fit",
             "scaling": {"num_workers": 2, "elastic": True, "gpus_per_worker": 0.5},
-            "backend": "gloo", "model": "gpt2_small", "dtype": "float32",
-            "global_batch": ELASTIC_B, "seq": seq, "steps": ELASTIC_STEPS,
+            "backend": "gloo", "model": "gpt2_small", "n_layer": cfg.n_layer,
+            "dtype": "float32", "global_batch": ELASTIC_B, "seq": seq, "steps": ELASTIC_STEPS,
             "rules": ELASTIC_RULES, "fired": sim.fired, "resize_events": out["resize_events"],
             "resumed": r0["resumed"], "resumed_rank_losses": r0["losses"],
             "resumed_world": r0["world"], "one_rank_losses": one["losses"],
@@ -2290,6 +2314,470 @@ def run_data_phases(smi, params=None, cfg=None, device=None, **sizes):
     require(not leftover_dirs, f"session directories left after shutdown: {leftover_dirs}")
     require(not leftover_pids, f"worker processes alive after shutdown: {leftover_pids}")
     return {"batch_predictor": bp["launches"], "data_ingest": di["launches"]}
+
+
+# ---------------------------------------------------------------------------- Serve
+# The serve phase: GPT-2 small (the main path's trained params; fresh from seed
+# 0 when run alone) behind Serve on the card. One deployment of SERVE_REPLICAS
+# replicas holding SERVE_GPU_SHARE of the GPU each (packed onto one device id),
+# whose __call__ is an async @serve.batch method of up to SERVE_MAX_BATCH rows
+# that scores rows of S + 1 token ids with TorchPredictor.from_checkpoint and
+# answers each row's mean next-token NLL. SERVE_ROWS rows (numpy seed 0) go in
+# as one JSON POST each from SERVE_CLIENTS client threads (urllib) through the
+# proxy's ephemeral port, then again through a DeploymentHandle from as many
+# threads. Each reply is held to the in-process TorchPredictor's NLL for its row
+# within SERVE_TOL: the same kernels and weights in another batch composition,
+# so the predictor's limit (PREDICT_LOSS_TOL) holds them. Then one replica with
+# @serve.multiplexed(max_num_models_per_replica=SERVE_MUX_CAPACITY) over
+# GPT-2 small checkpoints of SERVE_MUX_SEEDS, asked for the models in
+# SERVE_MUX_ORDER by the multiplexed-model-id header: each reply within
+# SERVE_TOL of its own model's in-process NLL, and each eviction must give back
+# at least SERVE_EVICT_SHARE of one model's parameter bytes of the replica's
+# torch.cuda.memory_allocated (what is left is allocator rounding).
+SERVE_ROWS, SERVE_CLIENTS, SERVE_REPLICAS, SERVE_GPU_SHARE = 128, 32, 2, 0.5
+SERVE_MAX_BATCH, SERVE_TOL = 16, PREDICT_LOSS_TOL
+# How long a batch waits for more rows once its first arrived (the reference's
+# default is 10 ms): 32 clients' next rows reach a replica within a few ms of
+# the batch they were in, so 50 ms lets a replica's next batch fill.
+SERVE_BATCH_WAIT_S = 0.05
+SERVE_MUX_SEEDS, SERVE_MUX_CAPACITY = (1, 2, 3), 2
+SERVE_MUX_ORDER = ("m1", "m2", "m3", "m1")
+SERVE_EVICT_SHARE = 0.9
+# Serve's system actors' names (ray_tpu_torch.serve._private.common).
+SERVE_ACTOR_PREFIXES = ("SERVE_CONTROLLER", "SERVE_PROXY", "SERVE_REPLICA::")
+
+
+def _percentile(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else None
+
+
+def _serve_traffic(send, rows, clients):
+    """Send each row once through ``send(row)`` from ``clients`` threads;
+    returns (replies in row order, per-request latency s, wall s)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        t0 = time.perf_counter()
+        out = send(rows[i])
+        return out, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=clients) as pool:
+        done = list(pool.map(one, range(len(rows))))
+    return [d[0] for d in done], [d[1] for d in done], time.perf_counter() - t0
+
+
+def phase_serve(smi, params=None, cfg=None, device=None, rows=SERVE_ROWS, seq=S,
+                clients=SERVE_CLIENTS, max_batch=SERVE_MAX_BATCH, mux_seeds=SERVE_MUX_SEEDS):
+    """GPT-2 small served by Serve on GPU replicas, over HTTP and a handle,
+    then a multiplexed replica over three checkpoints (see the constants
+    above). Needs a running runtime. Returns the phase's line (``launches``:
+    the replicas' own counts of the requests' batch calls)."""
+    import gc
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.air.checkpoint import Checkpoint, load_pytree, save_pytree
+    from ray_tpu_torch.models import GPTConfig, init_params
+    from ray_tpu_torch.models.training import tree_leaves
+    from ray_tpu_torch.train import TorchPredictor
+
+    cfg = cfg or GPTConfig.gpt2_small()
+    t_start = time.perf_counter()
+    if params is None:
+        params = init_params(cfg, 0, device=device)
+    device = tree_leaves(params)[0].device
+    on_cpu = device.type == "cpu"
+    replica_device = "cpu" if on_cpu else None  # None: the replica's default, its GPU
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size - 1, (rows, seq + 1)).astype(np.int32)
+    apply_fn = next_token_nll_fn(cfg)
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        ckpt = os.path.join(root, "main")
+        save_pytree(params, ckpt)
+        mux_dirs = {}
+        for i, seed in enumerate(mux_seeds):
+            mux_dirs[f"m{i + 1}"] = os.path.join(root, f"m{i + 1}")
+            mux_params = init_params(cfg, seed, device=device)
+            save_pytree(mux_params, mux_dirs[f"m{i + 1}"])
+            del mux_params
+
+        # The in-process predictor on the same rows, SERVE_MAX_BATCH a call.
+        local = TorchPredictor(params, apply_fn, device=device)
+        blocks = [{"tokens": tokens[i:i + max_batch, :-1], "targets": tokens[i:i + max_batch, 1:]}
+                  for i in range(0, rows, max_batch)]
+        local.predict(blocks[0])  # warmup
+        device_sync(device)
+        t0 = time.perf_counter()
+        want = np.concatenate([local.predict(b)["predictions"] for b in blocks]).mean(
+            axis=1, dtype=np.float64)
+        local_s = time.perf_counter() - t0
+        del local
+        mux_rows = tokens[:len(SERVE_MUX_ORDER)]
+        mux_want = {}
+        for mid, d in mux_dirs.items():
+            p = TorchPredictor.from_checkpoint(Checkpoint(data_dict={"params": load_pytree(d)}),
+                                               apply_fn=apply_fn, device=device)
+            mux_want[mid] = p.predict({"tokens": mux_rows[:, :-1], "targets": mux_rows[:, 1:]})[
+                "predictions"].mean(axis=1, dtype=np.float64).tolist()
+            del p
+        if not on_cpu:
+            torch.cuda.empty_cache()
+
+        @serve.deployment(name="Ping")
+        def ping(req):
+            return "pong"
+
+        @serve.deployment(name="GPT2", num_replicas=SERVE_REPLICAS, max_concurrent_queries=
+                          2 * max_batch, ray_actor_options={"num_gpus": SERVE_GPU_SHARE})
+        class GPT2Scorer:
+            """GPT-2 small's mean next-token NLL per row; each reply also
+            carries what the phase checks of the batch call it was in."""
+
+            def __init__(self, ckpt_dir, cfg, device):
+                import ray_tpu_torch.ops as ops
+                from ray_tpu_torch.air.checkpoint import Checkpoint, load_pytree
+                from ray_tpu_torch.train import TorchPredictor
+
+                t0 = time.time()
+                self.process_start = process_start_time()
+                self.predictor = TorchPredictor.from_checkpoint(
+                    Checkpoint(data_dict={"params": load_pytree(ckpt_dir)}),
+                    apply_fn=next_token_nll_fn(cfg), device=device)
+                self.device = self.predictor.device
+                if self.device.type == "cpu":
+                    count_plain_attention()
+                # One call before the first request: a fresh CUDA process's
+                # first work loads its libraries (seconds).
+                row = np.zeros((1, 2), np.int32)
+                self.predictor.predict({"tokens": row[:, :1], "targets": row[:, 1:]})
+                ops.reset_launch_counts()
+                self.constructor_s, self.calls = time.time() - t0, 0
+
+            @serve.batch(max_batch_size=max_batch, batch_wait_timeout_s=SERVE_BATCH_WAIT_S)
+            async def __call__(self, requests):
+                import ray_tpu_torch.ops as ops
+
+                rows = np.asarray([r.json() if hasattr(r, "json") else r for r in requests],
+                                  np.int32)
+                before, t0 = ops.launch_counts(), time.perf_counter()
+                nll = self.predictor.predict({"tokens": rows[:, :-1], "targets": rows[:, 1:]})[
+                    "predictions"]  # numpy: the call waited for the card
+                call_ms, after = (time.perf_counter() - t0) * 1e3, ops.launch_counts()
+                self.calls += 1
+                extra = {"pid": os.getpid(), "call": self.calls, "batch_size": len(rows),
+                         "call_ms": call_ms, "device": str(self.device),
+                         "visible": os.environ.get("CUDA_VISIBLE_DEVICES", ""),
+                         "gpu_free": ray_tpu_torch.available_resources().get("GPU", 0.0),
+                         "constructor_s": self.constructor_s,
+                         "process_start": self.process_start,
+                         "peak_memory_gib": peak_memory_gib(self.device),
+                         **{k: after[k] - before[k] for k in after}}
+                return [{"nll": float(r.mean(dtype=np.float64)), **extra} for r in nll]
+
+        @serve.deployment(name="GPT2Mux", max_concurrent_queries=4,
+                          ray_actor_options={"num_gpus": SERVE_GPU_SHARE})
+        class GPT2Multiplexed:
+            """One GPT-2 small per multiplexed model id, at most
+            SERVE_MUX_CAPACITY on the card; each eviction's memory_allocated
+            before and after its unload is kept."""
+
+            def __init__(self, dirs, cfg, device):
+                self.dirs, self.cfg, self.device = dirs, cfg, device
+                self.evictions, self.loads = [], []
+                if device == "cpu":
+                    count_plain_attention()
+
+            @serve.multiplexed(max_num_models_per_replica=SERVE_MUX_CAPACITY)
+            async def get_model(self, model_id):
+                from ray_tpu_torch.air.checkpoint import Checkpoint, load_pytree
+                from ray_tpu_torch.train import TorchPredictor
+
+                t0 = time.perf_counter()
+                predictor = TorchPredictor.from_checkpoint(
+                    Checkpoint(data_dict={"params": load_pytree(self.dirs[model_id])}),
+                    apply_fn=next_token_nll_fn(self.cfg), device=self.device)
+                self.loads.append({"model": model_id, "s": time.perf_counter() - t0})
+                evictions = self.evictions
+
+                class Loaded:
+                    def __init__(self, predictor):
+                        self.predictor = predictor
+
+                    def __serve_unload__(self):
+                        # The LRU dropped its reference; the params go with
+                        # the predictor.
+                        dev = self.predictor.device
+                        before = memory_allocated(dev)
+                        self.predictor = None
+                        gc.collect()
+                        evictions.append({"model": model_id, "allocated_before": before,
+                                          "allocated_after": memory_allocated(dev)})
+
+                loaded = Loaded(predictor)
+                del predictor  # Loaded holds the only reference
+                return loaded
+
+            async def __call__(self, req):
+                import ray_tpu_torch.ops as ops
+
+                model = await self.get_model()
+                row = np.asarray(req.json(), np.int32)[None]
+                before = ops.launch_counts()
+                nll = model.predictor.predict({"tokens": row[:, :-1], "targets": row[:, 1:]})[
+                    "predictions"]
+                after = ops.launch_counts()
+                dev = model.predictor.device
+                del model
+                return {"model": serve.get_multiplexed_model_id(),
+                        "nll": float(nll[0].mean(dtype=np.float64)),
+                        "cached": self.get_model._model_cache.model_ids(),
+                        "allocated": memory_allocated(dev), "loads": list(self.loads),
+                        "evictions": list(self.evictions), "pid": os.getpid(),
+                        "visible": os.environ.get("CUDA_VISIBLE_DEVICES", ""),
+                        **{k: after[k] - before[k] for k in after}}
+
+        gpu_total = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+        serve.start(http_options={"port": 0})
+        port = serve.http_port()
+        base = f"http://127.0.0.1:{port}"
+        serve.run(ping.bind(), route_prefix="/ping", port=0)
+
+        def post(path, row, headers=None):
+            req = urllib.request.Request(base + path, data=json.dumps(row).encode(),
+                                         headers=headers or {}, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return json.loads(r.read())
+
+        # Deploy, while another thread times a request to the Ping deployment
+        # through the proxy and a serve.status() call (the controller's lock),
+        # one after the other, until the deploy returns.
+        stall = {"ping_http_s": [], "status_s": []}
+        deploying = threading.Event()
+        deploying.set()
+
+        def probe():
+            while deploying.is_set():
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(base + "/ping", timeout=300) as r:
+                    r.read()
+                stall["ping_http_s"].append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                serve.status()
+                stall["status_s"].append(time.perf_counter() - t0)
+                time.sleep(0.05)
+
+        # serve.run's readiness barrier (every proxy routes the new prefix),
+        # timed apart from the deploy.
+        wait_routes, route_waits = serve.api._wait_routes_live, []
+
+        def timed_wait_routes(prefix, timeout=30.0):
+            t0 = time.perf_counter()
+            try:
+                wait_routes(prefix, timeout)
+            finally:
+                route_waits.append(time.perf_counter() - t0)
+
+        prober = threading.Thread(target=probe, daemon=True)
+        prober.start()
+        serve.api._wait_routes_live = timed_wait_routes
+        t0 = time.perf_counter()
+        try:
+            handle = serve.run(GPT2Scorer.bind(ckpt, cfg, replica_device), route_prefix="/gpt2",
+                               port=0)
+        finally:
+            run_s = time.perf_counter() - t0
+            serve.api._wait_routes_live = wait_routes
+            deploying.clear()
+            prober.join()
+        status = serve.status()["GPT2"]
+        rows_list = [t.tolist() for t in tokens]
+
+        t0 = time.perf_counter()
+        cold = post("/gpt2", rows_list[0])
+        cold_s = time.perf_counter() - t0
+        http, http_lat, http_s = _serve_traffic(lambda r: post("/gpt2", r), rows_list, clients)
+        via_handle, handle_lat, handle_s = _serve_traffic(lambda r: handle.remote(r).result(),
+                                                          rows_list, clients)
+        gpu_free_serving = ray_tpu_torch.available_resources().get("GPU", 0.0)
+        serve.delete("GPT2")
+
+        mux = serve.run(GPT2Multiplexed.bind(mux_dirs, cfg, replica_device),
+                        route_prefix="/mux", port=0)
+        del mux
+        mux_replies = [post("/mux", r.tolist(), {"serve_multiplexed_model_id": mid})
+                       for mid, r in zip(SERVE_MUX_ORDER, mux_rows)]
+        serve_pids = {r["pid"] for r in http + via_handle + mux_replies}
+        t0 = time.perf_counter()
+        serve.shutdown()
+        shutdown_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 10
+        while (ray_tpu_torch.available_resources().get("GPU", 0.0) < gpu_total
+               or any(pid_alive(p) for p in serve_pids)) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        gpu_free_after = ray_tpu_torch.available_resources().get("GPU", 0.0)
+        alive = sorted(a["name"] for a in
+                       ray_tpu_torch._private.worker.global_worker.context.list_actors()
+                       if (a["name"] or "").startswith(SERVE_ACTOR_PREFIXES)
+                       and a["state"] != "DEAD")
+        alive_pids = sorted(p for p in serve_pids if pid_alive(p))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def batch_calls(replies):
+        return {(r["pid"], r["call"]): r for r in replies}
+
+    calls = batch_calls(http + via_handle + [cold])
+    per_call = [{"flash_fwd": c["flash_fwd"], "flash_bwd": c["flash_bwd"]}
+                for c in calls.values()]
+    replicas = {}
+    for c in calls.values():
+        rep = replicas.setdefault(c["pid"], {
+            "pid": c["pid"], "device": c["device"], "visible": c["visible"],
+            "constructor_s": c["constructor_s"], "batch_calls": 0, "rows": 0,
+            "peak_memory_gib": 0.0, "batch_sizes": []})
+        rep["batch_calls"] += 1
+        rep["rows"] += c["batch_size"]
+        rep["batch_sizes"].append(c["batch_size"])
+        rep["peak_memory_gib"] = max(rep["peak_memory_gib"], c["peak_memory_gib"])
+    got_http = np.asarray([r["nll"] for r in http])
+    got_handle = np.asarray([r["nll"] for r in via_handle])
+    err_http = float(np.abs(got_http - want).max())
+    err_handle = float(np.abs(got_handle - want).max())
+    mux_err = [abs(r["nll"] - mux_want[mid][i])
+               for i, (mid, r) in enumerate(zip(SERVE_MUX_ORDER, mux_replies))]
+    evictions = mux_replies[-1]["evictions"]
+    evict_drop = [e["allocated_before"] - e["allocated_after"] for e in evictions]
+    mux_calls = [{"flash_fwd": r["flash_fwd"], "flash_bwd": r["flash_bwd"]} for r in mux_replies]
+    launches = {k: sum(c[k] for c in per_call) + sum(c[k] for c in mux_calls)
+                for k in ("flash_fwd", "flash_bwd")}
+    line = {"phase": "serve", "n_layer": cfg.n_layer, "d_model": cfg.d_model,
+            "entry": "serve.run(GPT2Scorer.bind(...)); HTTP POST /gpt2 and handle.remote",
+            "rows": rows, "seq": seq, "clients": clients, "replicas": SERVE_REPLICAS,
+            "num_gpus_per_replica": SERVE_GPU_SHARE, "max_batch_size": max_batch,
+            "batch_wait_timeout_s": SERVE_BATCH_WAIT_S, "proxy_port": port,
+            "gpu_total": gpu_total,
+            "gpu_free_during_calls": sorted({float(c["gpu_free"]) for c in calls.values()}),
+            "gpu_free_serving": gpu_free_serving, "gpu_free_after_shutdown": gpu_free_after,
+            "replica_start_s": status["replica_start_s"],
+            "controller_lock_held_per_replica_start_s": status["replica_start_s"],
+            "serve_run_s": run_s, "serve_run_wait_routes_live_s": route_waits,
+            "serve_run_minus_replica_starts_and_route_wait_s":
+                run_s - sum(status["replica_start_s"]) - sum(route_waits),
+            "other_deployment_stall": {
+                "ping_http_max_s": max(stall["ping_http_s"], default=None),
+                "ping_http_n": len(stall["ping_http_s"]),
+                "status_call_max_s": max(stall["status_s"], default=None),
+                "status_call_n": len(stall["status_s"])},
+            "replicas_seen": sorted(replicas.values(), key=lambda r: r["pid"]),
+            "cold_request_s": cold_s,
+            "http": {"wall_s": http_s, "requests_per_s": rows / http_s,
+                     "tokens_per_s": rows * seq / http_s,
+                     "p50_s": _percentile(http_lat, 50), "p99_s": _percentile(http_lat, 99),
+                     "max_abs_err_vs_in_process": err_http},
+            "handle": {"wall_s": handle_s, "requests_per_s": rows / handle_s,
+                       "tokens_per_s": rows * seq / handle_s,
+                       "p50_s": _percentile(handle_lat, 50),
+                       "p99_s": _percentile(handle_lat, 99),
+                       "max_abs_err_vs_in_process": err_handle},
+            "batch_sizes": sorted((c["batch_size"] for c in calls.values()), reverse=True),
+            "batch_calls": len(calls), "batch_call_ms_median":
+                statistics.median(c["call_ms"] for c in calls.values()),
+            "launches_per_batch_call": per_call, "launches": launches,
+            "in_process_s": local_s, "in_process_rows_per_s": rows / local_s,
+            "in_process_tokens_per_s": rows * seq / local_s,
+            "tol": SERVE_TOL,
+            "multiplex": {"order": list(SERVE_MUX_ORDER), "seeds": list(mux_seeds),
+                          "capacity": SERVE_MUX_CAPACITY,
+                          "cached_after_each": [r["cached"] for r in mux_replies],
+                          "allocated_after_each": [r["allocated"] for r in mux_replies],
+                          "loads": mux_replies[-1]["loads"], "evictions": evictions,
+                          "eviction_drop_bytes": evict_drop, "param_bytes": param_bytes,
+                          "abs_err_vs_in_process": mux_err, "launches_per_call": mux_calls,
+                          "visible": sorted({r["visible"] for r in mux_replies})},
+            "shutdown_s": shutdown_s, "serve_actors_alive_after": alive,
+            "serve_pids_alive_after": alive_pids,
+            "wall_s": time.perf_counter() - t_start, "card": smi}
+    emit(line)
+    require(len(http) == len(via_handle) == rows and np.isfinite(got_http).all()
+            and np.isfinite(got_handle).all(), f"serve: {len(http)} HTTP and {len(via_handle)} "
+            f"handle replies of {rows}, finite {np.isfinite(got_http).all()}")
+    require(err_http <= SERVE_TOL and err_handle <= SERVE_TOL,
+            f"serve: replies differ from the in-process predictor by {err_http} (HTTP), "
+            f"{err_handle} (handle)")
+    require(abs(cold["nll"] - want[0]) <= SERVE_TOL, f"serve: cold reply {cold['nll']}")
+    require(all(c == {"flash_fwd": cfg.n_layer, "flash_bwd": 0} for c in per_call),
+            f"serve: launches per batch call {per_call}, expected {cfg.n_layer} forward, "
+            f"0 backward")
+    require(sum(c["batch_size"] for c in calls.values()) == 2 * rows + 1,
+            f"serve: batch sizes {line['batch_sizes']} sum to "
+            f"{sum(c['batch_size'] for c in calls.values())}, {2 * rows + 1} requests sent")
+    require(len(replicas) == SERVE_REPLICAS and len(status["replica_start_s"]) == SERVE_REPLICAS,
+            f"serve: {len(replicas)} replicas answered, expected {SERVE_REPLICAS}")
+    require(max(mux_err) <= SERVE_TOL, f"serve: multiplexed replies off by {mux_err}")
+    require(mux_calls == [{"flash_fwd": cfg.n_layer, "flash_bwd": 0}] * len(SERVE_MUX_ORDER),
+            f"serve: multiplexed launches {mux_calls}")
+    require([e["model"] for e in evictions] == ["m1", "m2"]
+            and mux_replies[-1]["cached"] == ["m3", "m1"],
+            f"serve: evictions {[e['model'] for e in evictions]}, "
+            f"cached {mux_replies[-1]['cached']}")
+    require(not alive and not alive_pids, f"serve: alive after shutdown: {alive} {alive_pids}")
+    if not on_cpu:
+        require({r["visible"] for r in replicas.values()} == {"0"} and all(
+            r["device"].startswith("cuda") for r in replicas.values()),
+            f"serve: replicas on {line['replicas_seen']}")
+        require(line["gpu_free_during_calls"] == [0.0] and gpu_free_after == gpu_total == 1,
+                f"serve: GPU free {line['gpu_free_during_calls']} while serving, "
+                f"{gpu_free_after} of {gpu_total} after shutdown")
+        require(all(d >= SERVE_EVICT_SHARE * param_bytes for d in evict_drop),
+                f"serve: evictions gave back {evict_drop} bytes of {param_bytes}")
+    return line
+
+
+def memory_allocated(device):
+    """``torch.cuda.memory_allocated`` in bytes on a card; 0 on the CPU."""
+    import torch
+
+    dev = torch.device(device)
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def run_serve_phase(smi, params=None, cfg=None, device=None, **sizes):
+    """``serve`` on a runtime of its own (``init(num_cpus=4)``; on the CPU
+    with one logical GPU, which no CUDA backs), then its shutdown: no session
+    directory and none of its worker processes left. ``sizes`` (``rows``,
+    ``seq``, ``clients``, ``max_batch``, ``mux_seeds``) shrink it for a CPU
+    rehearsal. Returns the serve path's launches."""
+    import torch
+
+    import ray_tpu_torch
+
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, **({"num_gpus": 1} if on_cpu else {}))
+    init_s = time.perf_counter() - t0
+    session_dir = ray_tpu_torch._private.worker.global_worker.session_dir
+    pids = runtime_worker_pids()
+    try:
+        line = phase_serve(smi, params, cfg, device, **sizes)
+        pids |= {r["pid"] for r in line["replicas_seen"]} | runtime_worker_pids()
+    finally:
+        ray_tpu_torch.shutdown()
+    leftover_dirs = [session_dir] if os.path.exists(session_dir) else []
+    leftover_pids = sorted(pid for pid in pids if pid_alive(pid))
+    emit({"phase": "serve_shutdown", "init_s": init_s, "run_worker_pids": sorted(pids),
+          "leftover_session_dirs": leftover_dirs, "leftover_worker_pids": leftover_pids,
+          "serve_phase_s": time.perf_counter() - t0})
+    require(not leftover_dirs, f"session directories left after shutdown: {leftover_dirs}")
+    require(not leftover_pids, f"worker processes alive after shutdown: {leftover_pids}")
+    return line["launches"]
 
 
 # ---------------------------------------------------------------------------- RLlib
@@ -3845,6 +4333,7 @@ def main():
     # ------------------------------------------------------------------ 6a. the predictor, Data
     predictor_launches = phase_predictor(smi, main_params)
     data_launches = run_data_phases(smi, main_params)
+    serve_launches = run_serve_phase(smi, main_params)
     del main_params
     torch.cuda.empty_cache()
 
@@ -3886,6 +4375,7 @@ def main():
     launches_per_path = {name: {"main_path": launches[name], "trainer": t_launches[name],
                                 "predictor": predictor_launches[name],
                                 **{path: n[name] for path, n in data_launches.items()},
+                                "serve": serve_launches[name],
                                 "mesh_gang": mesh_launches[name],
                                 **{path: n[name] for path, n in gang_launches.items()},
                                 **{path: n[name] for path, n in zoo_launches.items()}}

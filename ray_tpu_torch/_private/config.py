@@ -226,7 +226,7 @@ class Config:
     # by the proxy's per-app admission control above).
     serve_replica_inflight_cap_factor: float = 0.0
     # Bounded per-proxy forwarding pipeline: at most this many requests per
-    # proxy hop to replicas concurrently (the uvicorn-worker / envoy
+    # proxy hop to replicas concurrently (the ASGI-worker / envoy
     # max_concurrent analogue). Requests over the bound wait as parked
     # coroutines (cheap) until a slot frees — the per-app queue cap above
     # sheds the true excess. Keeps the proxy event loop responsive under

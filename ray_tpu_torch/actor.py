@@ -201,12 +201,7 @@ class ActorClass:
 
     def bind(self, *args, **kwargs):
         """Build a lazy actor DAG node (reference: `dag/class_node.py`)."""
-        try:
-            from ray_tpu_torch.dag import ClassNode
-        except ImportError as e:
-            raise NotImplementedError(
-                "the DAG API (.bind) is not ported yet: ROADMAP.md Queue 1 item 2"
-            ) from e
+        from ray_tpu_torch.dag import ClassNode
 
         return ClassNode(self, args, kwargs)
 

@@ -138,12 +138,7 @@ class RemoteFunction:
     def bind(self, *args, **kwargs):
         """Build a lazy DAG node (reference: `dag/function_node.py`); run the
         graph with `.execute(...)`."""
-        try:
-            from ray_tpu_torch.dag import FunctionNode
-        except ImportError as e:
-            raise NotImplementedError(
-                "the DAG API (.bind) is not ported yet: ROADMAP.md Queue 1 item 2"
-            ) from e
+        from ray_tpu_torch.dag import FunctionNode
 
         return FunctionNode(self, args, kwargs)
 

@@ -1,0 +1,450 @@
+"""Serve public API: deployments, applications, run/shutdown.
+
+Reference: `python/ray/serve/api.py` (`@serve.deployment`, `serve.run:460`)
+and `_private/deployment_graph_build.py` (bound DAG -> deployments). A
+`Deployment.bind(...)` builds an `Application` node; `serve.run` deploys the
+graph bottom-up (bound children become `DeploymentHandle`s in the parent's
+init args), marks the top node as ingress, and exposes it over HTTP.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import ray_tpu_torch
+from ray_tpu_torch._private import serialization
+from ray_tpu_torch.serve._private.common import (
+    CONTROLLER_NAME,
+    DEFAULT_HTTP_PORT,
+    PROXY_NAME,
+    AutoscalingConfig,
+    DeploymentInfo,
+)
+from ray_tpu_torch.serve.handle import DeploymentHandle
+
+_VALID_DEPLOYMENT_OPTIONS = {
+    "name",
+    "num_replicas",
+    "ray_actor_options",
+    "autoscaling_config",
+    "route_prefix",
+    "max_concurrent_queries",
+    "max_queued_requests",
+    "user_config",
+    "version",
+}
+
+
+class Application:
+    """A bound deployment graph node (reference: `serve/deployment.py`
+    `Application`/`BuiltApplication`)."""
+
+    def __init__(self, deployment: "Deployment", args: Tuple, kwargs: Dict[str, Any]):
+        self.deployment = deployment
+        self.args = args
+        self.kwargs = kwargs
+
+
+class Deployment:
+    def __init__(self, target, options: Optional[Dict[str, Any]] = None):
+        self._target = target
+        opts = dict(options or {})
+        for k in opts:
+            if k not in _VALID_DEPLOYMENT_OPTIONS:
+                raise ValueError(f"invalid deployment option: {k}")
+        self._options = opts
+
+    @property
+    def name(self) -> str:
+        return self._options.get("name") or self._target.__name__
+
+    def options(self, **opts) -> "Deployment":
+        merged = dict(self._options)
+        merged.update(opts)
+        return Deployment(self._target, merged)
+
+    def bind(self, *args, **kwargs) -> Application:
+        return Application(self, args, kwargs)
+
+    def __call__(self, *a, **k):
+        raise TypeError(
+            f"Deployment {self.name} cannot be called directly; deploy it with "
+            "serve.run() and use the returned handle."
+        )
+
+
+def deployment(_target=None, **opts) -> Union[Deployment, Any]:
+    """`@serve.deployment` decorator (bare or parameterized)."""
+    if _target is not None:
+        return Deployment(_target)
+
+    def wrap(target):
+        return Deployment(target, opts)
+
+    return wrap
+
+
+def ingress(asgi_app):
+    """`@serve.ingress(app)`: mount an ASGI application (an ASGI framework's
+    app or any ASGI-3 callable) on a deployment class — HTTP requests route through
+    the app's own router, streamed end-to-end (reference:
+    `python/ray/serve/api.py:160`).
+
+    Usage::
+
+        app = SomeASGIFramework()
+
+        @serve.deployment
+        @serve.ingress(app)
+        class Api:
+            ...
+
+    The decorated class (and its replicas) expose the app via
+    `__serve_asgi_app__`; the HTTP proxy speaks ASGI to them.
+    """
+    if not callable(asgi_app):
+        raise TypeError("serve.ingress expects an ASGI application callable")
+
+    def wrap(cls):
+        if not isinstance(cls, type):
+            raise TypeError("@serve.ingress decorates a class")
+        # staticmethod: instance access must yield the raw app callable, not
+        # a bound method (which would shift the scope/receive/send args).
+        cls.__serve_asgi_app__ = staticmethod(asgi_app)
+        return cls
+
+    return wrap
+
+
+# ---------------------------------------------------------------- runtime state
+_client: Dict[str, Any] = {}
+
+
+def _get_controller(create: bool = True):
+    from ray_tpu_torch.serve._private.controller import ServeController
+
+    if "controller" in _client:
+        return _client["controller"]
+    try:
+        handle = ray_tpu_torch.get_actor(CONTROLLER_NAME)
+        from ray_tpu_torch.actor import ActorHandle
+
+        handle = ActorHandle(handle._actor_id, "ServeController")
+    except ValueError:
+        if not create:
+            raise RuntimeError("Serve is not running (call serve.run/start first)")
+        handle = (
+            ray_tpu_torch.remote(ServeController)
+            # Threaded: each long-polling router/proxy parks in one call slot;
+            # sized generously — parked threads are cheap, starved deploys are
+            # not (large fleets: shard routers over per-node controllers).
+            .options(
+                name=CONTROLLER_NAME,
+                num_cpus=0.1,
+                max_concurrency=256,
+                get_if_exists=True,
+                # Serve outlives the driver that started it (reference: all
+                # Serve system actors are detached); serve.shutdown() kills.
+                lifetime="detached",
+            )
+            .remote()
+        )
+        ray_tpu_torch.get(handle.__ray_ready__.remote())
+    _client["controller"] = handle
+    return handle
+
+
+def _get_proxy(create: bool = True, port: int = DEFAULT_HTTP_PORT):
+    from ray_tpu_torch.serve._private.http_proxy import HTTPProxy
+
+    if "proxy" in _client:
+        return _client["proxy"]
+    controller = _get_controller()
+    try:
+        handle = ray_tpu_torch.get_actor(PROXY_NAME)
+        from ray_tpu_torch.actor import ActorHandle
+
+        handle = ActorHandle(handle._actor_id, "HTTPProxy")
+    except ValueError:
+        if not create:
+            return None
+        if port == 0:
+            # Ephemeral port: a crash-restart would rebind a DIFFERENT port
+            # and strand every client that cached http_port() — keep the
+            # explicit-start path (no auto-restart) for port=0.
+            handle = (
+                ray_tpu_torch.remote(HTTPProxy)
+                .options(
+                    name=PROXY_NAME, num_cpus=0.1, get_if_exists=True,
+                    lifetime="detached",
+                )
+                .remote(controller)
+            )
+            bound = ray_tpu_torch.get(handle.start.remote(port=0))
+        else:
+            handle = (
+                ray_tpu_torch.remote(HTTPProxy)
+                .options(
+                    name=PROXY_NAME, num_cpus=0.1, get_if_exists=True,
+                    lifetime="detached", max_restarts=10,
+                )
+                .remote(controller, port)
+            )
+            # Binding happened in __init__ (crash-restarts rebind the same
+            # fixed port); a recorded bind failure surfaces here.
+            err = ray_tpu_torch.get(handle.start_error.remote())
+            if err:
+                raise RuntimeError(f"HTTP proxy failed to bind port {port}: {err}")
+            bound = ray_tpu_torch.get(handle.port.remote())
+        _client["http_port"] = bound
+    _client["proxy"] = handle
+    return handle
+
+
+def start(
+    *,
+    proxy_location: str = "HeadOnly",
+    http_options: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Start Serve system actors ahead of `serve.run` (reference:
+    `serve.start`, `http_options={"location": "EveryNode"}`). With
+    `proxy_location="EveryNode"` the CONTROLLER spawns and manages one HTTP
+    proxy actor per cluster node — exactly like replicas (the reference's
+    `http_state.py` fleet): each is registered in the head's service
+    directory on bind, mirrors the shared routing table via the controller
+    long poll, and is respawned/re-bound by the controller's reconcile loop;
+    nodes that join later get a proxy automatically. Each binds its own
+    port (`port=0` picks a free one — required when virtual nodes share one
+    machine). `serve.proxy_ports()` lists them."""
+    ray_tpu_torch._private.worker._auto_init()
+    opts = dict(http_options or {})
+    location = opts.get("location", proxy_location)
+    port = int(opts.get("port", DEFAULT_HTTP_PORT))
+    controller = _get_controller()
+    if location != "EveryNode":
+        _get_proxy(create=True, port=port)
+        return
+    ray_tpu_torch.get(controller.ensure_proxies.remote(port=0))
+    _client["managed_proxies"] = True
+
+
+def proxy_ports() -> Dict[str, int]:
+    """node_id -> bound HTTP port for per-node (controller-managed) proxies
+    (+ the default proxy under "head" when present)."""
+    out: Dict[str, int] = {}
+    if _client.get("managed_proxies") and "controller" in _client:
+        try:
+            proxies = ray_tpu_torch.get(_client["controller"].get_proxies.remote())
+            out.update({nid: p["port"] for nid, p in proxies.items()})
+        except Exception:
+            pass
+    if "http_port" in _client:
+        out["head"] = _client["http_port"]
+    return out
+
+
+def http_port() -> Optional[int]:
+    if "http_port" in _client:
+        return _client["http_port"]
+    proxy = _get_proxy(create=False)
+    if proxy is None:
+        return None
+    port = ray_tpu_torch.get(proxy.port.remote())
+    _client["http_port"] = port
+    return port
+
+
+# ------------------------------------------------------------------------- run
+def _collect_apps(app: Application, out: List[Application]) -> None:
+    """Post-order: children first, so handles exist before parents deploy."""
+    for a in list(app.args) + list(app.kwargs.values()):
+        if isinstance(a, Application):
+            _collect_apps(a, out)
+    if app not in out:
+        out.append(app)
+
+
+def run(
+    target: Union[Application, Deployment],
+    *,
+    route_prefix: Optional[str] = "/",
+    host: str = "127.0.0.1",
+    port: int = DEFAULT_HTTP_PORT,
+    _blocking_http: bool = True,
+) -> DeploymentHandle:
+    """Deploy an application (graph); returns a handle to the ingress."""
+    from ray_tpu_torch._private import usage
+
+    usage.record_library_usage("serve")
+    ray_tpu_torch._private.worker._auto_init()
+    if isinstance(target, Deployment):
+        target = target.bind()
+    if not isinstance(target, Application):
+        raise TypeError(f"serve.run expects an Application, got {type(target)}")
+
+    controller = _get_controller()
+    order: List[Application] = []
+    _collect_apps(target, order)
+    routed_prefixes: List[str] = []
+    for app in order:
+        dep = app.deployment
+        resolved_args = tuple(
+            DeploymentHandle(a.deployment.name, controller)
+            if isinstance(a, Application)
+            else a
+            for a in app.args
+        )
+        resolved_kwargs = {
+            k: DeploymentHandle(v.deployment.name, controller)
+            if isinstance(v, Application)
+            else v
+            for k, v in app.kwargs.items()
+        }
+        is_ingress = app is target
+        info = DeploymentInfo(
+            name=dep.name,
+            blob=serialization.dumps(dep._target),
+            init_args=resolved_args,
+            init_kwargs=resolved_kwargs,
+            num_replicas=int(dep._options.get("num_replicas", 1)),
+            max_concurrent_queries=int(
+                dep._options.get("max_concurrent_queries", 1)
+            ),
+            max_queued_requests=int(
+                dep._options.get("max_queued_requests", 0)
+            ),
+            ray_actor_options=dep._options.get("ray_actor_options") or {},
+            autoscaling_config=_coerce_autoscaling(
+                dep._options.get("autoscaling_config")
+            ),
+            route_prefix=(
+                dep._options.get("route_prefix", route_prefix) if is_ingress
+                else dep._options.get("route_prefix")
+            ),
+            is_ingress=is_ingress,
+            is_asgi=hasattr(dep._target, "__serve_asgi_app__"),
+        )
+        _check_gpu_share(info)
+        if info.route_prefix:
+            # EVERY routed deployment in this run is awaited, not just the
+            # ingress — a child with its own route_prefix is routable the
+            # moment run() returns too.
+            routed_prefixes.append(info.route_prefix)
+        ray_tpu_torch.get(controller.deploy.remote(info))
+    if _blocking_http:
+        _get_proxy(create=True, port=port)
+    # Readiness barrier: replicas are already live (controller.deploy blocks
+    # on __ray_ready__ per replica), but the route table reaches proxies via
+    # an async long-poll push — returning before every proxy has the route
+    # lets an immediate request 404 (reference: serve.run blocks until
+    # deployments AND routes are ready, serve/api.py:460).
+    for prefix in routed_prefixes:
+        _wait_routes_live(prefix)
+    return DeploymentHandle(target.deployment.name, controller)
+
+
+def _check_gpu_share(info: DeploymentInfo) -> None:
+    """Refuse a deployment whose first replicas ask for more GPU than the
+    cluster has: the controller creates replicas one by one, blocking on
+    each (under the lock its long-poll listeners share), so a replica the
+    scheduler can never place would hang the controller and every router.
+    (The reference checks nothing here; its controller waits.)"""
+    share = float((info.ray_actor_options or {}).get("num_gpus", 0) or 0)
+    if share <= 0:
+        return
+    if info.autoscaling_config:
+        n = max(info.autoscaling_config.min_replicas,
+                min(info.num_replicas, info.autoscaling_config.max_replicas))
+    else:
+        n = info.num_replicas
+    have = float(ray_tpu_torch.cluster_resources().get("GPU", 0.0))
+    if n * share > have + 1e-9:
+        raise ValueError(
+            f"deployment {info.name!r} asks for {n} replica(s) x num_gpus={share} "
+            f"= {n * share} GPU, but the cluster has GPU {have}"
+        )
+
+
+def _wait_routes_live(prefix: str, timeout: float = 30.0) -> None:
+    """Block until every responsive proxy (head + controller-managed) can
+    route `prefix`. A proxy that never answers within the deadline (dead
+    node, crash-looping restart) is skipped rather than failing the deploy —
+    the app IS live on every proxy that can serve it (the controller's
+    reconcile loop brings stragglers back)."""
+    from ray_tpu_torch.actor import ActorHandle
+
+    named = [("head", h) for h in ([_client["proxy"]] if "proxy" in _client else [])]
+    if _client.get("managed_proxies") and "controller" in _client:
+        try:
+            proxies = ray_tpu_torch.get(_client["controller"].get_proxies.remote())
+            named += [
+                (nid, ActorHandle(p["actor_id"], "HTTPProxy"))
+                for nid, p in proxies.items()
+            ]
+        except Exception:
+            pass
+    deadline = time.time() + timeout
+    for nid, h in named:
+        responded = False
+        while True:
+            try:
+                if ray_tpu_torch.get(h.has_route.remote(prefix)):
+                    break
+                responded = True
+            except Exception:
+                # Proxy mid-restart or dead: keep polling until the deadline.
+                pass
+            if time.time() > deadline:
+                if responded:
+                    # Reachable but still missing the route: a real push
+                    # failure the caller must hear about.
+                    raise TimeoutError(
+                        f"route {prefix!r} was not live at proxy {nid} "
+                        f"within {timeout}s"
+                    )
+                break
+            time.sleep(0.05)
+
+
+def _coerce_autoscaling(cfg) -> Optional[AutoscalingConfig]:
+    if cfg is None or isinstance(cfg, AutoscalingConfig):
+        return cfg
+    if isinstance(cfg, dict):
+        return AutoscalingConfig(**cfg)
+    raise TypeError(f"invalid autoscaling_config: {cfg!r}")
+
+
+def get_deployment_handle(name: str) -> DeploymentHandle:
+    return DeploymentHandle(name, _get_controller(create=False))
+
+
+def status() -> Dict[str, Any]:
+    controller = _get_controller(create=False)
+    return ray_tpu_torch.get(controller.list_deployments.remote())
+
+
+def delete(name: str) -> None:
+    controller = _get_controller(create=False)
+    ray_tpu_torch.get(controller.delete_deployment.remote(name))
+
+
+def shutdown() -> None:
+    from ray_tpu_torch.serve.handle import close_all_routers
+
+    close_all_routers()
+    if "controller" in _client:
+        try:
+            ray_tpu_torch.get(_client["controller"].shutdown.remote())
+            ray_tpu_torch.kill(_client["controller"])
+        except Exception:
+            pass
+    if "proxy" in _client:
+        try:
+            ray_tpu_torch.kill(_client["proxy"])
+        except Exception:
+            pass
+    # Controller-managed (EveryNode) proxies are killed by
+    # controller.shutdown() above.
+    _client.clear()

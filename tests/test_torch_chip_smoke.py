@@ -589,14 +589,15 @@ def test_predictor_runs_on_the_cpu(counted_cpu_attention, capsys):
     # The kernels line: the predictor on the forward's paths only.
     per_path = {p: 12 for p in chip_smoke.KERNEL_PATHS}
     fwd = _kernel(launches_per_path={**per_path, "predictor": launches["flash_fwd"],
-                                     "batch_predictor": 12})
+                                     "batch_predictor": 12, "serve": 12})
     bwd = _kernel(name="flash_bwd", launches_per_path={**per_path, "predictor": 0})
     paths = chip_smoke.KERNEL_PATHS_BY_KERNEL
     assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd]}, paths) == []
     bwd_there = _kernel(name="flash_bwd", launches_per_path={**per_path, "predictor": 4})
     assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd_there]}, paths) == [
         "flash_bwd: launched on predictor"]
-    no_fwd = _kernel(launches_per_path={**per_path, "predictor": 0, "batch_predictor": 12})
+    no_fwd = _kernel(launches_per_path={**per_path, "predictor": 0, "batch_predictor": 12,
+                                        "serve": 12})
     assert chip_smoke.check_kernels_line({"kernels": [no_fwd, bwd]}, paths) == [
         "flash_fwd: no launch on predictor"]
 
@@ -693,7 +694,7 @@ def test_data_phases_run_on_the_cpu(monkeypatch, capsys):
     # The kernels line: batch_predictor on the forward only, data_ingest on both.
     per_path = {p: 12 for p in chip_smoke.KERNEL_PATHS}
     paths = chip_smoke.KERNEL_PATHS_BY_KERNEL
-    fwd = _kernel(launches_per_path={**per_path, "predictor": 12,
+    fwd = _kernel(launches_per_path={**per_path, "predictor": 12, "serve": 12,
                                      **{k: v["flash_fwd"] for k, v in launches.items()}})
     bwd = _kernel(name="flash_bwd", launches_per_path={
         **per_path, "predictor": 0, **{k: v["flash_bwd"] for k, v in launches.items()}})
@@ -706,3 +707,53 @@ def test_data_phases_run_on_the_cpu(monkeypatch, capsys):
         **per_path, "predictor": 0, "batch_predictor": 2})
     assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd_in_pool]}, paths) == [
         "flash_bwd: launched on batch_predictor"]
+
+
+# ------------------------------------------------------------------ Serve
+def test_serve_phase_runs_on_the_cpu(monkeypatch, capsys):
+    # The serve phase at nano size on the CPU, on a runtime with one logical
+    # GPU (the replicas hold 0.5 of it each; no CUDA is touched): each
+    # replica counts its plain attention calls as launches.
+    import json
+
+    from ray_tpu_torch._private.accelerators import gpu
+    from ray_tpu_torch.models import GPTConfig
+
+    monkeypatch.setattr(gpu, "default_device", lambda: torch.device("cpu"))
+    cfg = GPTConfig.nano()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.run_serve_phase("cpu", cfg=cfg, device="cpu", rows=8, seq=32,
+                                              clients=4, max_batch=4, mux_seeds=(1, 2, 3))
+    finally:
+        torch.set_num_threads(threads)
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert [x["phase"] for x in lines] == ["serve", "serve_shutdown"]
+    line, down = lines
+    # 8 rows over HTTP, 8 over the handle and one cold request, on 2 replicas.
+    assert sum(line["batch_sizes"]) == 17 and max(line["batch_sizes"]) <= 4
+    assert len(line["replicas_seen"]) == 2 and len(line["replica_start_s"]) == 2
+    assert {r["visible"] for r in line["replicas_seen"]} == {"0"}  # the logical GPU's id
+    assert line["gpu_free_during_calls"] == [0.0] and line["gpu_free_after_shutdown"] == 1.0
+    assert line["launches_per_batch_call"] == [{"flash_fwd": cfg.n_layer, "flash_bwd": 0}] * (
+        line["batch_calls"])
+    assert line["http"]["max_abs_err_vs_in_process"] <= chip_smoke.SERVE_TOL
+    assert line["handle"]["max_abs_err_vs_in_process"] <= chip_smoke.SERVE_TOL
+    mux = line["multiplex"]
+    assert mux["cached_after_each"] == [["m1"], ["m1", "m2"], ["m2", "m3"], ["m3", "m1"]]
+    assert [e["model"] for e in mux["evictions"]] == ["m1", "m2"]
+    assert max(mux["abs_err_vs_in_process"]) <= chip_smoke.SERVE_TOL
+    assert line["serve_actors_alive_after"] == [] and line["serve_pids_alive_after"] == []
+    assert down["leftover_session_dirs"] == [] and down["leftover_worker_pids"] == []
+    assert launches == {"flash_fwd": cfg.n_layer * (line["batch_calls"] + 4), "flash_bwd": 0}
+    # The kernels line: Serve on the forward only.
+    per_path = {p: 12 for p in chip_smoke.KERNEL_PATHS}
+    paths = chip_smoke.KERNEL_PATHS_BY_KERNEL
+    fwd = _kernel(launches_per_path={**per_path, "predictor": 12, "batch_predictor": 12,
+                                     "serve": launches["flash_fwd"]})
+    bwd = _kernel(name="flash_bwd", launches_per_path={**per_path, "serve": 0})
+    assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd]}, paths) == []
+    no_serve = _kernel(launches_per_path={**per_path, "predictor": 12, "batch_predictor": 12})
+    assert chip_smoke.check_kernels_line({"kernels": [no_serve, bwd]}, paths) == [
+        "flash_fwd: no launch on serve"]

@@ -97,6 +97,66 @@ def test_data_runs_without_pyarrow_and_pandas(tmp_path):
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
 
 
+WEB_PACKAGES = ("aiohttp", "fastapi", "starlette", "uvicorn")
+
+
+def test_serve_runs_without_web_packages(tmp_path):
+    # The card's machine has no aiohttp, fastapi or starlette: Serve's proxy
+    # is the standard library's. PYTHONPATH starts with packages of those
+    # names that raise on import, so the proxy's and replicas' workers meet
+    # them too; an HTTP round trip and a streamed reply must still work.
+    for name in WEB_PACKAGES[:3]:
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(f"raise ImportError('{name} is blocked')\n")
+    code = (
+        "import json, sys, urllib.request\n"
+        "import ray_tpu_torch\n"
+        "from ray_tpu_torch import serve\n"
+        "ray_tpu_torch.init(num_cpus=2)\n"
+        "try:\n"
+        "    @serve.deployment\n"
+        "    class Echo:\n"
+        "        def __call__(self, req):\n"
+        "            import sys\n"
+        "            bad = [m for m in ('aiohttp', 'fastapi', 'starlette') if m in sys.modules]\n"
+        "            return {'got': req.json(), 'bad': bad}\n"
+        "    @serve.deployment\n"
+        "    class Gen:\n"
+        "        def __call__(self, req):\n"
+        "            yield 'a;'\n"
+        "            yield 'b;'\n"
+        "    serve.start(http_options={'port': 0})\n"
+        "    serve.run(Echo.bind(), route_prefix='/echo', port=0)\n"
+        "    serve.run(Gen.bind(), route_prefix='/gen', port=0)\n"
+        "    base = f'http://127.0.0.1:{serve.http_port()}'\n"
+        "    r = urllib.request.Request(base + '/echo', data=b'[1, 2]', method='POST')\n"
+        "    with urllib.request.urlopen(r, timeout=30) as resp:\n"
+        "        assert json.loads(resp.read()) == {'got': [1, 2], 'bad': []}\n"
+        "    with urllib.request.urlopen(base + '/gen', timeout=30) as resp:\n"
+        "        assert resp.headers['Transfer-Encoding'] == 'chunked'\n"
+        "        assert resp.read() == b'a;b;'\n"
+        "finally:\n"
+        "    serve.shutdown()\n"
+        "    ray_tpu_torch.shutdown()\n"
+        "bad = [m for m in ('aiohttp', 'fastapi', 'starlette', 'uvicorn') if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), ROOT])
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+    # And no file of the port names them.
+    named = re.compile(r"\b(" + "|".join(WEB_PACKAGES) + r")\b", re.I)
+    for dirpath, _, files in os.walk(PKG_DIR):
+        for f in files:
+            if f.endswith((".py", ".c", ".cpp", ".cu", ".h")):
+                with open(os.path.join(dirpath, f)) as fh:
+                    assert not named.search(fh.read()), os.path.join(dirpath, f)
+
+
 def test_sources_name_no_jax_and_no_ray_tpu():
     banned = re.compile(r"^\s*(import jax|from jax|import ray_tpu(?!_torch)|from ray_tpu(?!_torch)"
                         r"|import transformers|from transformers|import optax|from optax)", re.M)
@@ -229,23 +289,12 @@ def test_collective_parallel_and_model_exports_match_the_jax_packages():
 
 
 def test_item_2_entry_points_raise_not_implemented(tmp_path):
-    # The five entry points that reach a module listed in NOT_YET_PORTED
-    # raise NotImplementedError naming its item, not an ImportError.
+    # The three entry points that reach a module listed in NOT_YET_PORTED
+    # raise NotImplementedError naming its item, not an ImportError. (.bind
+    # on a remote function or actor class builds a DAG node now:
+    # tests/test_torch_dag.py.)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
         ray_tpu_torch.timeline()
-
-    @ray_tpu_torch.remote
-    def f(x):
-        return x
-
-    @ray_tpu_torch.remote
-    class A:
-        pass
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        f.bind(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        A.bind()
     # The head: with --dashboard-port, and when it recovers a journal that
     # holds a job still running.
     from ray_tpu_torch._private.gcs import GCS
@@ -285,7 +334,6 @@ def test_detect_num_gpus_reads_visible_devices(monkeypatch):
 # ports one of them must take it out of this set: the walk below must find
 # exactly these unresolved.
 NOT_YET_PORTED = {
-    "ray_tpu_torch.dag",  # the DAG API (.bind): Queue 1 item 2
     "ray_tpu_torch.dashboard",  # the head's REST dashboard: Queue 1 item 2
     "ray_tpu_torch.job_submission.client",  # job submission: Queue 1 item 2
     "ray_tpu_torch.util.state",  # state API and timeline(): Queue 1 item 2

@@ -18,7 +18,10 @@ shutdown check), ``mesh`` (``collective_nccl``, then
 through ``save_pytree``/``load_pytree`` and ``TorchPredictor``) or ``rl_multi_agent``
 (multi-agent PPO, DQN and SAC on a runtime of their own, then its shutdown
 check) or ``data`` (``batch_predictor`` and ``data_ingest`` on GPT-2 small
-from seed 0, on a runtime of their own, then its shutdown check). The phases run in this process, after the
+from seed 0, on a runtime of their own, then its shutdown check) or ``serve``
+(GPT-2 small from seed 0 behind Serve on two 0.5-GPU replicas over HTTP and
+a handle, then a multiplexed replica, on a runtime of its own, then its
+shutdown check). The phases run in this process, after the
 flags ``chip_smoke.py`` sets (no TF32); each prints its JSON line, and the
 card's name and power limit come first. Run one checkout per process: both
 trees name their package ``ray_tpu_torch``. For an A/B, alternate them:
@@ -36,7 +39,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = {"resnet50": "phase_resnet50", "rl_learner_check": "phase_rl_learner_check",
           "rl": "run_rl_phases", "mesh": "run_mesh_phases", "pipe_ctx": "run_pipe_ctx_phases",
           "mesh_rest": "run_mesh_rest_phases", "predictor": "phase_predictor",
-          "rl_multi_agent": "run_rl_multi_agent", "data": "run_data_phases"}
+          "rl_multi_agent": "run_rl_multi_agent", "data": "run_data_phases",
+          "serve": "run_serve_phase"}
 
 
 def main(argv=None):
