@@ -70,6 +70,25 @@ exits non-zero and prints no result.
    controller's lock hold per replica start, cold and warm latency, requests/s
    and tokens/s over HTTP and the handle, the batch sizes formed, peak memory
    printed; ``serve_shutdown``.
+   Then Tune, on a runtime of its own: ``tune``, first a Trainer sweep,
+   ``Tuner(TorchTrainer(...))`` over ``{"train_loop_config": {"lr":
+   grid_search([3e-4, 1e-3])}}``, each trial's gang one worker holding 0.5
+   GPU, the main path's model from seed 0 at B 8 x S 1024 for 4 steps with a
+   report each: both workers on device id "0" at once (the node's ``GPU`` 0.0
+   free as the driver sees it), 12 + 12 launches a step in each, the first
+   losses bit equal and within 1e-3 of plain attention on the same batch,
+   ``get_best_result()`` the trial of the lower last loss; then PBT on two
+   function trials holding 0.5 GPU each that train the same model in the
+   trial actor at B 4 for 5 steps, reporting a ``Checkpoint.from_dict`` of
+   params and AdamW state every 2 steps: at least one exploit, whose
+   restarted actor holds the donor checkpoint's params on the card bit for
+   bit (sha256) with the donor's config and lr explored, read in place; the
+   journal and spec hold the param space's device tensor as a CPU tensor;
+   ``GPU`` 1.0 free and no trial process left after each ``fit()``; each
+   exploit's kill, actor start, CUDA, checkpoint read and onto-the-card
+   seconds, the checkpoints' MB and persist seconds, trial actor starts,
+   each trial's tokens/s, wall time and peak memory printed;
+   ``tune_shutdown``.
 6b. collectives and the mesh: ``collective_nccl``, every op of
    ``ray_tpu_torch.util.collective`` on a world-1 NCCL group over CUDA
    tensors, f32 and bf16, each result checked and on ``cuda:0``; then
@@ -157,7 +176,7 @@ exits non-zero and prints no result.
    launched by these phases).
 10. a ``kernels`` line (launches per path: ``KERNEL_PATHS_BY_KERNEL``, the
    predictor's, the batch predictor's (its actors' sum) and Serve's (its
-   replicas' sum) forward only; rank 0's on a
+   replicas' sum) forward only; Tune's, every trial's summed; rank 0's on a
    gang; times at the Llama shape and of the ring's blocks with one SDPA
    call on the whole sequence beside them), checked for the keys the
    contract names,
@@ -632,7 +651,7 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 # The training paths the kernels line counts launches on: each must launch both
 # kernels.
 KERNEL_PATHS = ("main_path", "trainer", "mesh_gang", "pipeline_gang", "context_gang", "llama",
-                "moe", "remat_dots", "expert_gang", "elastic_reshard", "data_ingest")
+                "moe", "remat_dots", "expert_gang", "elastic_reshard", "data_ingest", "tune")
 # The paths each kernel must launch on: the predictor, the batch predictor's
 # pool actors and Serve's replicas (inference) run the forward only, so the
 # backward must show 0 launches there.
@@ -2780,6 +2799,604 @@ def run_serve_phase(smi, params=None, cfg=None, device=None, **sizes):
     return line["launches"]
 
 
+# ---------------------------------------------------------------------------- Tune
+# The tune phase, on a runtime of its own whose object store holds a few of the
+# PBT part's checkpoints at once (TUNE_SYSTEM_CONFIG). First a Trainer sweep:
+# Tuner(TorchTrainer(tune_trainer_loop)) over param_space={"train_loop_config":
+# {"lr": grid_search(TUNE_LRS)}}, each trial's gang one worker holding
+# TUNE_GPU_SHARE of the card, the main path's model from seed 0 at TUNE_B rows
+# of S tokens (numpy seed 0), TUNE_STEPS steps, a report every step. Both
+# trials start from the same weights and batch through the same kernels, so
+# their first losses are held to each other bit for bit, and to plain
+# attention on the same batch in the driver with the main path's limit
+# (LOSS_TOL). Then PBT on function trainables: two trials holding
+# TUNE_GPU_SHARE each (resources_per_trial) train the same model in the trial
+# actor at PBT_B rows for PBT_STEPS steps, from lr PBT_LRS (one far too small;
+# the other's loss falls at every step, where 1e-3's and 3e-4's rise by the
+# fourth on this batch, which would send the good trial to the bottom too),
+# under PopulationBasedTraining(perturbation_interval=PBT_INTERVAL,
+# hyperparam_mutations={"lr": PBT_MUTATIONS}); a trial reports a
+# Checkpoint.from_dict of its params and AdamW state at each perturbation
+# boundary only. The slow trial holds its boundary report until the other's
+# checkpoint is persisted, so the driver reads it after the other's and the
+# slow trial, in the bottom half, exploits it: exactly one exploit (left to
+# the order of the two reports, PBT exploits at the first boundary or a later
+# one, and a restored trial that still trails is exploited again, 22-28 s
+# each on an H100). The restarted actor must hold the donor checkpoint's
+# params on the card bit for bit (sha256 over the host bytes), with the
+# donor's config and lr explored. The PBT param_space also holds a tensor on
+# the device (PBT_PROBE), which Tune's journal and spec must hold as a CPU
+# tensor.
+TUNE_B, TUNE_STEPS, TUNE_LRS, TUNE_GPU_SHARE = 8, 4, (3e-4, 1e-3), 0.5
+PBT_B, PBT_STEPS, PBT_INTERVAL = 4, 3, 2
+PBT_LRS, PBT_MUTATIONS = (1e-5, 1e-4), [5e-5, 1e-4]
+PBT_PROBE = (0.0, 1.0, 2.0, 3.0)
+TUNE_SYSTEM_CONFIG = {"object_store_memory": 16 << 30}
+
+
+def tune_batch(cfg, batch, seq, device):
+    """``batch`` rows of ``seq`` + 1 tokens from numpy seed 0 on ``device``."""
+    import torch
+
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size - 1, (batch, seq + 1))
+    return {"tokens": torch.as_tensor(tokens.astype(np.int32), device=device)}
+
+
+def tune_steps(state, step, batch, steps, first, report):
+    """Steps ``first`` to ``steps`` (1-based) of ``step`` on ``batch``, each
+    one's launches counted from 0; ``report(i, state, record)`` after each
+    with its loss, wall times, launches and what the phase checks of the
+    process."""
+    import ray_tpu_torch
+    from ray_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = state.params["wte"].device
+    reset_launch_counts()
+    reset_peak_memory(dev)
+    for i in range(first, steps + 1):
+        before = launch_counts()
+        device_sync(dev)
+        t0 = time.time()
+        state, m = step(state, batch)
+        loss = m["loss"].item()  # waits for the step
+        t1 = time.time()
+        after = launch_counts()
+        report(i, state, {
+            "loss": loss, "step": i, "t0": t0, "t1": t1,
+            "launches": {k: after[k] - before[k] for k in after}, "pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES", ""), "device": str(dev),
+            "gpu_free": ray_tpu_torch.available_resources().get("GPU", 0.0),
+            "peak_memory_gib": peak_memory_gib(dev)})
+
+
+def wait_for_the_other_trials(key, n, timeout=120.0):
+    """Put this process under the KV prefix ``key``, then wait until ``n``
+    processes have, so that the trials train at the same time (Tune launches
+    them one after the other, and each process takes seconds to start);
+    returns the seconds waited."""
+    from ray_tpu_torch._private.worker import global_worker
+
+    kv = global_worker.context.kv
+    kv("put", f"{key}/{os.getpid()}".encode(), b"1")
+    t0 = time.time()
+    while len(kv("keys", f"{key}/".encode())) < n and time.time() - t0 < timeout:
+        time.sleep(0.05)
+    return time.time() - t0
+
+
+def tune_trainer_loop(config):
+    """The tune phase's Trainer sweep, per worker: the main path's model and
+    AdamW at ``config["lr"]`` from seed 0, ``config["steps"]`` steps on one
+    batch, a report every step (``tune_steps``)."""
+    stamps = {"process_start": process_start_time(), "loop_start": time.time()}
+    import torch
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import create_train_state, default_optimizer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config["cfg"]
+    if config["device"] == "cpu":
+        count_plain_attention()
+    opt = default_optimizer(learning_rate=config["lr"])
+    state = create_train_state(cfg, 0, opt, device=config["device"])
+    batch = tune_batch(cfg, config["batch"], config["seq"], state.params["wte"].device)
+    stamps["workload_built"] = time.time()
+    stamps["waited_for_the_other_trial_s"] = wait_for_the_other_trials(
+        config["barrier"], config["trials"])
+
+    def report(i, state, record):
+        session.report({**record, "stamps": stamps})
+
+    tune_steps(state, make_train_step(cfg, opt), batch, config["steps"], 1, report)
+
+
+def wait_for_a_peer_checkpoint(timeout=120.0):
+    """Wait until another trial of this experiment has a checkpoint persisted
+    (a ``checkpoint_*`` directory in its trial directory, which the driver
+    renames into place before it registers it); returns the seconds waited."""
+    from ray_tpu_torch.air import session
+
+    own = session.get_trial_dir()
+    pattern = os.path.join(os.path.dirname(own), "*", "checkpoint_*")
+    t0 = time.time()
+    while (not [p for p in glob.glob(pattern) if not p.startswith(own + os.sep)]
+           and time.time() - t0 < timeout):
+        time.sleep(0.05)
+    return time.time() - t0
+
+
+def tune_pbt_trainable(config):
+    """The tune phase's PBT trainable, in the trial actor (which holds a
+    share of the card): the main path's model and AdamW at ``config["lr"]``,
+    from seed 0 or from the checkpoint Tune hands it, moved onto the card;
+    a report every step (``tune_steps``), with a ``Checkpoint.from_dict`` of
+    the params, AdamW state, step, trial id and config at each perturbation
+    boundary only; the trial of ``config["slow_lr"]`` holds each boundary
+    report until the other trial's checkpoint is persisted. A restored
+    trial's first report says what it restored:
+    the donor's trial id and step, and the sha256 of the params as read and
+    as they lie on the card; every report carries the process's start, CUDA,
+    checkpoint read and checkpoint-on-card times."""
+    stamps = {"process_start": process_start_time(), "start": time.time()}
+    import torch
+
+    from ray_tpu_torch._private.accelerators.gpu import resolve_device
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.air.checkpoint import Checkpoint
+    from ray_tpu_torch.models import TrainState, create_train_state, default_optimizer
+    from ray_tpu_torch.models import make_train_step
+    from ray_tpu_torch.models.training import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = resolve_device(config["device"])
+    if dev.type == "cpu":
+        count_plain_attention()
+    torch.zeros(1, device=dev)
+    device_sync(dev)
+    stamps["cuda_ready"] = time.time()
+    cfg, opt = config["cfg"], default_optimizer(learning_rate=config["lr"])
+    ckpt, restored = session.get_checkpoint(), None
+    if ckpt is None:
+        state = create_train_state(cfg, 0, opt, device=dev)
+        stamps["waited_for_the_other_trial_s"] = wait_for_the_other_trials(
+            config["barrier"], config["trials"])
+    else:
+        saved = ckpt.to_dict()
+        stamps["ckpt_read"] = time.time()
+        params = tree_map(lambda t: t.to(dev).requires_grad_(True), saved["params"])
+        opt_state = {"count": saved["opt"]["count"],
+                     "mu": tree_map(lambda t: t.to(dev), saved["opt"]["mu"]),
+                     "nu": tree_map(lambda t: t.to(dev), saved["opt"]["nu"])}
+        state = TrainState(params=params, opt_state=opt_state, step=saved["step"])
+        device_sync(dev)
+        stamps["ckpt_on_card"] = time.time()
+        restored = {"from_trial": saved["trial_id"], "from_step": saved["step"],
+                    "sha_read": state_digest(saved["params"]), "sha_on_card": state_digest(params),
+                    "devices": sorted({str(t.device) for t in tree_leaves(params)})}
+        del saved
+    batch = tune_batch(cfg, config["batch"], config["seq"], dev)
+    first_step = state.step + 1
+
+    def report(i, state, record):
+        nonlocal restored
+        record.update(stamps=stamps, restored=restored, lr=config["lr"])
+        if i % config["interval"] == 0:
+            if config["lr"] == config["slow_lr"] and restored is None:
+                record["waited_for_a_peer_checkpoint_s"] = wait_for_a_peer_checkpoint()
+            t0 = time.perf_counter()
+            ckpt = Checkpoint.from_dict({"params": state.params, "opt": state.opt_state,
+                                         "step": i, "trial_id": session.get_trial_id(),
+                                         "config": dict(config)})
+            record["checkpoint_from_dict_s"] = time.perf_counter() - t0
+            session.report(record, checkpoint=ckpt)
+        else:
+            session.report(record)
+        restored = None
+
+    tune_steps(state, make_train_step(cfg, opt), batch, config["steps"], first_step, report)
+
+
+def _tune_recorder():
+    """A Tune callback that keeps every trial result with the driver's time
+    and the node's free ``GPU`` as the driver sees it, and every trial start."""
+    import ray_tpu_torch
+    from ray_tpu_torch import tune
+
+    class Recorder(tune.Callback):
+        def __init__(self):
+            self.results, self.starts = [], []
+
+        def on_trial_start(self, iteration, trials, trial, **info):
+            self.starts.append({"trial_id": trial.trial_id, "restarts": trial.restarts,
+                                "t": time.time()})
+
+        def on_trial_result(self, iteration, trials, trial, result, **info):
+            self.results.append({**result, "trial_id": trial.trial_id,
+                                 "restarts": trial.restarts, "t_driver": time.time(),
+                                 "gpu_free_driver": ray_tpu_torch.available_resources().get(
+                                     "GPU", 0.0)})
+
+    return Recorder()
+
+
+@contextlib.contextmanager
+def tune_timings():
+    """While the block runs, time each trial actor's launch (creation and
+    session start) and teardown in Tune's runner, and each checkpoint
+    persist in this process (seconds and bytes on disk)."""
+    from ray_tpu_torch.train._internal.checkpoint_manager import CheckpointManager
+    from ray_tpu_torch.tune.execution.trial_runner import TrialRunner
+
+    rec = {"launch": [], "teardown": [], "persist": []}
+    launch, teardown, register = TrialRunner._launch, TrialRunner._teardown, \
+        CheckpointManager.register
+
+    def timed_launch(self, trial):
+        t0 = time.time()
+        launch(self, trial)
+        rec["launch"].append({"trial_id": trial.trial_id, "restarts": trial.restarts, "t0": t0,
+                              "s": time.time() - t0})
+
+    def timed_teardown(self, trial):
+        t0 = time.time()
+        teardown(self, trial)
+        rec["teardown"].append({"trial_id": trial.trial_id, "status": trial.status, "t0": t0,
+                                "s": time.time() - t0})
+
+    def timed_register(self, checkpoint, metrics):
+        t0 = time.time()
+        out = register(self, checkpoint, metrics)
+        path = out.uri[len("file://"):]
+        rec["persist"].append({"run_dir": self.run_dir, "s": time.time() - t0, "bytes": sum(
+            os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))})
+        return out
+
+    TrialRunner._launch, TrialRunner._teardown = timed_launch, timed_teardown
+    CheckpointManager.register = timed_register
+    try:
+        yield rec
+    finally:
+        TrialRunner._launch, TrialRunner._teardown = launch, teardown
+        CheckpointManager.register = register
+
+
+def _wait_released(gpu_total, pids, timeout=10.0):
+    """Wait until the node's ``GPU`` is all free and ``pids`` are gone (a
+    killed CUDA process takes a moment to release its context); returns the
+    free ``GPU`` and the pids still alive."""
+    import ray_tpu_torch
+
+    deadline = time.monotonic() + timeout
+    while (ray_tpu_torch.available_resources().get("GPU", 0.0) < gpu_total
+           or any(pid_alive(p) for p in pids)) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    return (ray_tpu_torch.available_resources().get("GPU", 0.0),
+            sorted(p for p in pids if pid_alive(p)))
+
+
+def _by_trial(results):
+    out = {}
+    for r in results:
+        out.setdefault(r["trial_id"], []).append(r)
+    return out
+
+
+def _tokens_per_s(reports, tokens):
+    """Tokens a step over the median step of ``reports``, each process's
+    first step left out (it carries a fresh CUDA process's first work)."""
+    warm = [r for prev, r in zip(reports, reports[1:]) if prev["pid"] == r["pid"]] or reports
+    return tokens / statistics.median(r["t1"] - r["t0"] for r in warm)
+
+
+def same_config(a, b, skip=()):
+    """Whether two trial configs hold the same keys and values (tensors
+    compared by value), apart from the keys in ``skip``."""
+    import torch
+
+    if set(a) != set(b):
+        return False
+    for k in set(a) - set(skip):
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            if not (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                    and torch.equal(x.cpu(), y.cpu())):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def phase_tune(smi, cfg=None, device=None, batch=TUNE_B, pbt_batch=PBT_B, seq=S,
+               steps=TUNE_STEPS, pbt_steps=PBT_STEPS):
+    """The Trainer sweep and PBT of the constants above, on the running
+    runtime (which must have one ``GPU``). Returns the phase's line
+    (``launches``: every trial's, summed)."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch
+    import ray_tpu_torch.train.torch as rt_torch
+    from ray_tpu_torch import tune
+    from ray_tpu_torch._private import serialization
+    from ray_tpu_torch._private.accelerators.gpu import resolve_device
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.air.checkpoint import Checkpoint
+    from ray_tpu_torch.models import GPTConfig, gpt
+    from ray_tpu_torch.tune.schedulers import PopulationBasedTraining
+
+    cfg = cfg or GPTConfig.gpt2_small()
+    dev = resolve_device(device)
+    on_cpu = dev.type == "cpu"
+    trial_device = "cpu" if on_cpu else None  # None: the trial's default, its GPU
+    t_start = time.perf_counter()
+    session_dir = ray_tpu_torch._private.worker.global_worker.session_dir
+    results_dir = os.path.join(session_dir, "results")
+    gpu_total = ray_tpu_torch.cluster_resources().get("GPU", 0.0)
+    tmp_before = set(glob.glob(os.path.join(tempfile.gettempdir(), "ray_tpu_torch_ckpt_*")))
+
+    # ---------------------------------------------------------- the Trainer sweep
+    trainer = rt_torch.TorchTrainer(
+        tune_trainer_loop,
+        train_loop_config={"cfg": cfg, "batch": batch, "seq": seq, "steps": steps,
+                           "device": trial_device, "barrier": "chip_smoke_tune_sweep",
+                           "trials": len(TUNE_LRS)},
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                     gpus_per_worker=TUNE_GPU_SHARE),
+        backend_config=rt_torch.TorchConfig(device="cpu") if on_cpu else None,
+        run_config=RunConfig(name="chip_smoke_tune_trainer", storage_path=results_dir))
+    rec = _tune_recorder()
+    tuner = tune.Tuner(
+        trainer, param_space={"train_loop_config": {"lr": tune.grid_search(list(TUNE_LRS))}},
+        tune_config=tune.TuneConfig(metric="loss", mode="min"),
+        run_config=RunConfig(name="chip_smoke_tune_sweep", storage_path=results_dir,
+                             callbacks=[rec]))
+    with tune_timings() as timing:
+        t0 = time.perf_counter()
+        grid = tuner.fit()
+        sweep_s = time.perf_counter() - t0
+    by_trial = _by_trial(rec.results)
+    sweep_pids = {r["pid"] for r in rec.results}
+    gpu_free_after, alive = _wait_released(gpu_total, sweep_pids)
+    ref_loss, _ = first_step_reference(cfg, tune_batch(cfg, batch, seq, dev), gpt)
+    trials = []
+    for tid, reports in by_trial.items():
+        reports.sort(key=lambda r: r["step"])
+        launch = next(x for x in timing["launch"] if x["trial_id"] == tid)
+        st = reports[0]["stamps"]
+        trials.append({
+            "trial_id": tid, "lr": reports[0]["config"]["train_loop_config"]["lr"],
+            "losses": [r["loss"] for r in reports], "worker_pid": reports[0]["pid"],
+            "worker_visible": sorted({r["visible"] for r in reports}),
+            "worker_device": sorted({r["device"] for r in reports}),
+            "launches_per_step": [r["launches"] for r in reports],
+            "trial_actor_start_s": launch["s"],
+            "worker_process_start_s": st["process_start"] - launch["t0"],
+            "worker_loop_start_s": st["loop_start"] - launch["t0"],
+            "workload_built_s": st["workload_built"] - launch["t0"],
+            "first_step_s": reports[0]["t1"] - reports[0]["t0"],
+            "step_s": [r["t1"] - r["t0"] for r in reports],
+            "tokens_per_s": _tokens_per_s(reports, batch * seq),
+            "wall_s": reports[-1]["t1"] - launch["t0"],
+            "worker_alive": [st["process_start"], reports[-1]["t1"]],
+            "peak_memory_gib": max(r["peak_memory_gib"] for r in reports),
+            "gpu_free_in_worker": sorted({r["gpu_free"] for r in reports})})
+    trials.sort(key=lambda t: t["lr"])
+    first = [t["losses"][0] for t in trials]
+    overlap_s = (min(t["worker_alive"][1] for t in trials)
+                 - max(t["worker_alive"][0] for t in trials)) if len(trials) == 2 else 0.0
+    best = grid.get_best_result()
+    lowest = min(trials, key=lambda t: t["losses"][-1])
+    sweep = {"entry": "Tuner(TorchTrainer(tune_trainer_loop, scaling_config=ScalingConfig("
+                      "num_workers=1, use_gpu=True, gpus_per_worker=0.5))).fit()",
+             "batch": batch, "seq": seq, "steps": steps, "lrs": list(TUNE_LRS),
+             "trials": trials, "errors": [str(e) for e in grid.errors],
+             "first_losses_bit_equal": len(set(first)) == 1,
+             "first_step_reference": ref_loss,
+             "first_loss_abs_err": max(abs(x - ref_loss) for x in first), "tol": LOSS_TOL,
+             "workers_overlap_s": overlap_s,
+             "gpu_free_seen_by_driver": sorted({r["gpu_free_driver"] for r in rec.results}),
+             "best_trial": best.metrics["trial_id"], "lowest_last_loss_trial": lowest["trial_id"],
+             "fit_s": sweep_s, "gpu_free_after": gpu_free_after, "pids_alive_after": alive}
+
+    # --------------------------------------------------------------------- PBT
+    probe = torch.tensor(PBT_PROBE, device=dev)
+    rec2 = _tune_recorder()
+    tuner = tune.Tuner(
+        tune_pbt_trainable,
+        param_space={"lr": tune.grid_search(list(PBT_LRS)), "cfg": cfg, "batch": pbt_batch,
+                     "seq": seq, "steps": pbt_steps, "interval": PBT_INTERVAL,
+                     "device": trial_device, "probe": probe, "barrier": "chip_smoke_tune_pbt",
+                     "trials": len(PBT_LRS), "slow_lr": PBT_LRS[0]},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min",
+            scheduler=PopulationBasedTraining(perturbation_interval=PBT_INTERVAL,
+                                              hyperparam_mutations={"lr": list(PBT_MUTATIONS)}),
+            resources_per_trial={"CPU": 1, "GPU": TUNE_GPU_SHARE}),
+        run_config=RunConfig(name="chip_smoke_tune_pbt", storage_path=results_dir,
+                             callbacks=[rec2]))
+    with tune_timings() as timing2:
+        t0 = time.perf_counter()
+        grid2 = tuner.fit()
+        pbt_s = time.perf_counter() - t0
+    pbt_pids = {r["pid"] for r in rec2.results}
+    gpu_free_after2, alive2 = _wait_released(gpu_total, pbt_pids)
+    paths = {r.metrics["trial_id"]: r.path for r in grid2 if r.metrics}
+    exploits = []
+    for r in (x for x in rec2.results if x.get("restored")):
+        got = r["restored"]
+        donor_dir = paths[got["from_trial"]]
+        with open(os.path.join(donor_dir, ".tune_checkpoint_metrics.json")) as f:
+            manifest = json.load(f)
+        name = next(n for n, m in manifest.items() if m.get("step") == got["from_step"])
+        saved = Checkpoint.from_directory(os.path.join(donor_dir, name)).to_dict()
+        launch = [x for x in timing2["launch"] if x["trial_id"] == r["trial_id"]
+                  and x["restarts"] == r["restarts"]][-1]
+        kill = [x for x in timing2["teardown"] if x["trial_id"] == r["trial_id"]
+                and x["t0"] <= launch["t0"]][-1]
+        st = r["stamps"]
+        exploits.append({
+            "trial_id": r["trial_id"], "restarts": r["restarts"], "donor": got["from_trial"],
+            "donor_step": got["from_step"], "donor_checkpoint": name,
+            "sha_donor_checkpoint": state_digest(saved["params"]),
+            "sha_read": got["sha_read"], "sha_on_card": got["sha_on_card"],
+            "params_devices": got["devices"], "lr": r["config"]["lr"],
+            "donor_lr": saved["config"]["lr"],
+            "config_is_donors_explored": same_config(r["config"], saved["config"], skip=("lr",))
+            and r["config"]["lr"] in PBT_MUTATIONS,
+            "kill_s": kill["s"], "launch_s": launch["s"],
+            "actor_process_start_s": st["process_start"] - launch["t0"],
+            "trainable_start_s": st["start"] - launch["t0"],
+            "cuda_s": st["cuda_ready"] - st["start"],
+            "checkpoint_read_s": st["ckpt_read"] - st["cuda_ready"],
+            "checkpoint_to_card_s": st["ckpt_on_card"] - st["ckpt_read"],
+            "first_step_s": r["t1"] - r["t0"],
+            "decision_to_first_report_s": r["t_driver"] - kill["t0"]})
+        del saved
+    pbt_trials = []
+    for tid, reports in _by_trial(rec2.results).items():
+        launches = [x for x in timing2["launch"] if x["trial_id"] == tid]
+        pbt_trials.append({
+            "trial_id": tid, "lr_first": reports[0]["lr"], "lr_last": reports[-1]["lr"],
+            "restarts": reports[-1]["restarts"], "steps": [r["step"] for r in reports],
+            "losses": [r["loss"] for r in reports],
+            "step_s": [r["t1"] - r["t0"] for r in reports],
+            "pids": sorted({r["pid"] for r in reports}),
+            "visible": sorted({r["visible"] for r in reports}),
+            "device": sorted({r["device"] for r in reports}),
+            "trial_actor_start_s": [x["s"] for x in launches],
+            "tokens_per_s": _tokens_per_s(reports, pbt_batch * seq),
+            "wall_s": reports[-1]["t_driver"] - launches[0]["t0"],
+            "peak_memory_gib": max(r["peak_memory_gib"] for r in reports),
+            "checkpoint_from_dict_s": [r["checkpoint_from_dict_s"] for r in reports
+                                       if "checkpoint_from_dict_s" in r]})
+    # Tune's journal and spec: the device tensor in param_space as a CPU tensor.
+    exp_dir = os.path.join(results_dir, "chip_smoke_tune_pbt")
+    with open(os.path.join(exp_dir, "experiment_state.json")) as f:
+        journal = [serialization.loads(bytes.fromhex(t["config_pkl"]))["probe"]
+                   for t in json.load(f)["trials"]]
+    with open(os.path.join(exp_dir, "tuner.pkl"), "rb") as f:
+        spec_probe = pickle.load(f)["param_space"]["probe"]
+    stored = journal + [spec_probe]
+    want = torch.tensor(PBT_PROBE)
+    tmp_new = sorted(set(glob.glob(os.path.join(tempfile.gettempdir(),
+                                                   "ray_tpu_torch_ckpt_*"))) - tmp_before)
+    tmp_bytes = sum(os.path.getsize(os.path.join(d, f)) for d in tmp_new for f in os.listdir(d))
+    persist = timing2["persist"]
+    pbt = {"entry": "Tuner(tune_pbt_trainable, tune_config=TuneConfig(scheduler="
+                    "PopulationBasedTraining(...), resources_per_trial={'CPU': 1, 'GPU': 0.5}))"
+                    ".fit()",
+           "batch": pbt_batch, "seq": seq, "steps": pbt_steps, "interval": PBT_INTERVAL,
+           "lrs": list(PBT_LRS), "mutations": list(PBT_MUTATIONS), "trials": pbt_trials,
+           "errors": [str(e) for e in grid2.errors], "exploits": exploits,
+           "checkpoints": len(persist),
+           "checkpoint_mb": [p["bytes"] / 1e6 for p in persist],
+           "checkpoint_persist_s": [p["s"] for p in persist],
+           "restored_checkpoint_tmp_dirs": len(tmp_new), "restored_checkpoint_tmp_mb":
+               tmp_bytes / 1e6,
+           "journal_and_spec_probe_devices": sorted({str(t.device) for t in stored}),
+           "journal_and_spec_probe_equal": all(torch.equal(t, want) for t in stored),
+           "gpu_free_seen_by_driver": sorted({r["gpu_free_driver"] for r in rec2.results}),
+           "best_trial": grid2.get_best_result().metrics["trial_id"],
+           "fit_s": pbt_s, "gpu_free_after": gpu_free_after2, "pids_alive_after": alive2}
+    every = [r["launches"] for r in rec.results + rec2.results]
+    launches = {k: sum(c[k] for c in every) for k in ("flash_fwd", "flash_bwd")}
+    line = {"phase": "tune", "n_layer": cfg.n_layer, "d_model": cfg.d_model,
+            "dtype": str(cfg.dtype).replace("torch.", ""), "gpu_total": gpu_total,
+            "sweep": sweep, "pbt": pbt, "launches": launches,
+            "wall_s": time.perf_counter() - t_start, "card": smi}
+    emit(line)
+
+    per_step = {"flash_fwd": cfg.n_layer, "flash_bwd": cfg.n_layer}
+    require(len(grid) == len(TUNE_LRS) == len(trials) and not grid.errors,
+            f"tune: sweep of {len(grid)} trials, {len(trials)} reported, errors {grid.errors}")
+    for t in trials:
+        require(len(t["losses"]) == steps and all(math.isfinite(x) for x in t["losses"]),
+                f"tune: sweep trial {t['trial_id']} losses {t['losses']}")
+        require(all(c == per_step for c in t["launches_per_step"]),
+                f"tune: sweep trial {t['trial_id']} launches per step {t['launches_per_step']}")
+    require(sweep["first_losses_bit_equal"], f"tune: sweep first losses {first} differ")
+    require(sweep["first_loss_abs_err"] <= LOSS_TOL,
+            f"tune: sweep first losses {first} vs plain attention {ref_loss}")
+    require(overlap_s > 0, f"tune: the sweep's workers never ran at once ({overlap_s} s)")
+    require(best.metrics["trial_id"] == lowest["trial_id"],
+            f"tune: best result {best.metrics['trial_id']}, lowest last loss "
+            f"{lowest['trial_id']}")
+    require(len(grid2) == len(PBT_LRS) and not grid2.errors,
+            f"tune: PBT of {len(grid2)} trials, errors {grid2.errors}")
+    require(exploits, "tune: PBT made no exploit")
+    for e in exploits:
+        require(e["sha_on_card"] == e["sha_read"] == e["sha_donor_checkpoint"],
+                f"tune: exploit of {e['trial_id']}: params on the card {e['sha_on_card']}, "
+                f"read {e['sha_read']}, donor checkpoint {e['sha_donor_checkpoint']}")
+        require(e["config_is_donors_explored"],
+                f"tune: exploit of {e['trial_id']}: config lr {e['lr']} from donor lr "
+                f"{e['donor_lr']}, other keys equal: {e['config_is_donors_explored']}")
+        require(all(d.startswith(dev.type) for d in e["params_devices"]),
+                f"tune: restored params on {e['params_devices']}")
+    for t in pbt_trials:
+        require(all(math.isfinite(x) for x in t["losses"]), f"tune: PBT losses {t['losses']}")
+    require(all(c == per_step for c in (r["launches"] for r in rec2.results)),
+            "tune: PBT launches per step "
+            f"{[r['launches'] for r in rec2.results if r['launches'] != per_step]}")
+    require(not tmp_new, f"tune: restored checkpoints copied into {tmp_new} ({tmp_bytes} bytes)")
+    require(pbt["journal_and_spec_probe_devices"] == ["cpu"] and
+            pbt["journal_and_spec_probe_equal"],
+            f"tune: the journal's and spec's probe on {pbt['journal_and_spec_probe_devices']}")
+    for part, seen, free_after, left in (("sweep", sweep["gpu_free_seen_by_driver"],
+                                          gpu_free_after, alive),
+                                         ("PBT", pbt["gpu_free_seen_by_driver"],
+                                          gpu_free_after2, alive2)):
+        require(0.0 in seen and free_after == gpu_total == 1,
+                f"tune: {part}: GPU free {seen} during the run, {free_after} of {gpu_total} "
+                f"after")
+        require(not left, f"tune: {part}: trial processes alive after fit(): {left}")
+    visible = {v for t in trials for v in t["worker_visible"]} | {
+        v for t in pbt_trials for v in t["visible"]}
+    require(visible == {"0"}, f"tune: trial processes saw CUDA_VISIBLE_DEVICES {visible}")
+    if not on_cpu:
+        devices = {d for t in trials for d in t["worker_device"]} | {
+            d for t in pbt_trials for d in t["device"]}
+        require(all(d.startswith("cuda") for d in devices), f"tune: trials ran on {devices}")
+    return line
+
+
+def run_tune_phase(smi, cfg=None, device=None, **sizes):
+    """``tune`` on a runtime of its own (``init(num_cpus=4)``; on the CPU with
+    one logical GPU, which no CUDA backs), then its shutdown: no session
+    directory and none of its worker processes left. ``sizes`` (``batch``,
+    ``pbt_batch``, ``seq``, ``steps``, ``pbt_steps``) shrink it for a CPU
+    rehearsal. Returns the tune path's launches."""
+    import torch
+
+    import ray_tpu_torch
+
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=4, _system_config=dict(TUNE_SYSTEM_CONFIG),
+                       **({"num_gpus": 1} if on_cpu else {}))
+    init_s = time.perf_counter() - t0
+    session_dir = ray_tpu_torch._private.worker.global_worker.session_dir
+    pids = runtime_worker_pids()
+    try:
+        line = phase_tune(smi, cfg, device, **sizes)
+        pids |= runtime_worker_pids()
+        pids |= {t["worker_pid"] for t in line["sweep"]["trials"]}
+        pids |= {p for t in line["pbt"]["trials"] for p in t["pids"]}
+    finally:
+        ray_tpu_torch.shutdown()
+    leftover_dirs = [session_dir] if os.path.exists(session_dir) else []
+    leftover_pids = sorted(pid for pid in pids if pid_alive(pid))
+    emit({"phase": "tune_shutdown", "init_s": init_s, "run_worker_pids": sorted(pids),
+          "leftover_session_dirs": leftover_dirs, "leftover_worker_pids": leftover_pids,
+          "tune_phase_s": time.perf_counter() - t0})
+    require(not leftover_dirs, f"session directories left after shutdown: {leftover_dirs}")
+    require(not leftover_pids, f"worker processes alive after shutdown: {leftover_pids}")
+    return line["launches"]
+
+
 # ---------------------------------------------------------------------------- RLlib
 # The RL phases' CartPole: gymnasium's CartPole-v1 (envs/classic_control/
 # cartpole.py: dynamics, thresholds, reset draw) under its 500-step TimeLimit,
@@ -4330,12 +4947,13 @@ def main():
     require(not leftover_dirs, f"session directories left after shutdown: {leftover_dirs}")
     require(not leftover_pids, f"worker processes alive after shutdown: {leftover_pids}")
 
-    # ------------------------------------------------------------------ 6a. the predictor, Data
+    # ------------------------------------------------------------------ 6a. the predictor, Data, Serve, Tune
     predictor_launches = phase_predictor(smi, main_params)
     data_launches = run_data_phases(smi, main_params)
     serve_launches = run_serve_phase(smi, main_params)
     del main_params
     torch.cuda.empty_cache()
+    tune_launches = run_tune_phase(smi)
 
     # ------------------------------------------------------------------ 6b. collectives, the mesh
     phase_collective_nccl(smi)
@@ -4375,7 +4993,7 @@ def main():
     launches_per_path = {name: {"main_path": launches[name], "trainer": t_launches[name],
                                 "predictor": predictor_launches[name],
                                 **{path: n[name] for path, n in data_launches.items()},
-                                "serve": serve_launches[name],
+                                "serve": serve_launches[name], "tune": tune_launches[name],
                                 "mesh_gang": mesh_launches[name],
                                 **{path: n[name] for path, n in gang_launches.items()},
                                 **{path: n[name] for path, n in zoo_launches.items()}}

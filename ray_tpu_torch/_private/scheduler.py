@@ -4117,6 +4117,11 @@ class Scheduler:
     def _req_create_pg(self, wh: WorkerHandle, req_id: int, payload):
         self._respond(wh, req_id, True, self._cmd_create_pg(payload))
 
+    def _req_remove_pg(self, wh: WorkerHandle, req_id: int, pg_id):
+        # A worker that made a placement group removes it (a Trainer run as
+        # a Tune trial removes its gang's when it ends).
+        self._respond(wh, req_id, True, self._cmd_remove_pg(pg_id))
+
     def _req_pg_ready(self, wh: WorkerHandle, req_id: int, pg_id):
         self._mark_blocked(wh)
 

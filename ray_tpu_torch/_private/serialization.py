@@ -175,6 +175,18 @@ def _dumps(obj: Any) -> bytes:
     return data
 
 
+def dumps_to_host(obj: Any) -> bytes:
+    """One in-band blob for a file (Tune's journal and spec, a workflow's
+    DAG and step outputs): cloudpickle with the reducer above, so a device
+    tensor is written as a CPU tensor, and a process without that device can
+    load it with ``loads``. No frame limit applies."""
+    import io
+
+    f = io.BytesIO()
+    _Pickler(f, protocol=5).dump(obj)
+    return f.getvalue()
+
+
 def loads(data: bytes) -> Any:
     if data[:1] == wire.MAGIC:
         return wire.decode(data)

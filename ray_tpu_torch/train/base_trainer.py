@@ -64,7 +64,9 @@ class BaseTrainer:
 
     def as_trainable(self):
         """A Tune function-trainable wrapping this trainer (param_space's
-        'train_loop_config' key overrides the trainer's loop config per trial)."""
+        'train_loop_config' key overrides the trainer's loop config per trial).
+        Its gang runs from the trial actor, so ``Tuner.fit`` counts the gang's
+        ``num_workers x ScalingConfig._resources`` in each trial's footprint."""
         trainer = self
 
         def _trainable(config: Dict[str, Any]):

@@ -20,7 +20,6 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Type
 
 import numpy as np
-import torch
 
 from ray_tpu_torch._private.accelerators.gpu import resolve_device
 from ray_tpu_torch.air.checkpoint import Checkpoint
@@ -43,6 +42,8 @@ class Predictor:
 def _to_device(tree: Any, device: torch.device) -> Any:
     """Nested dicts, lists and tuples of arrays, scalars or tensors as the
     same nesting of tensors on ``device`` (dtypes kept)."""
+    import torch
+
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -57,6 +58,8 @@ def _writable(a: np.ndarray) -> np.ndarray:
 
 
 def _to_numpy(out: Any) -> np.ndarray:
+    import torch
+
     if isinstance(out, torch.Tensor):
         t = out.detach().to("cpu")
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
@@ -107,6 +110,8 @@ class TorchPredictor(Predictor):
         return self._params
 
     def predict(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        import torch
+
         if self._feature_columns is not None:
             feats = torch.as_tensor(np.stack(
                 [np.asarray(batch[c], np.float32) for c in self._feature_columns],
@@ -164,6 +169,8 @@ class BatchPredictor:
         keep = list(keep_columns or [])
         feats = list(feature_columns) if feature_columns else None
         if num_gpus_per_worker is None:
+            import torch
+
             device = pred_kwargs.get("device")
             on_cpu = device is not None and torch.device(device).type == "cpu"
             num_gpus_per_worker = 0 if on_cpu else 1 / num_workers

@@ -2,8 +2,9 @@
 build phase prints, the relative error its kernel checks use, the trainer
 phase's check that its own workers are gone after shutdown, the RL
 phases' numpy CartPole, runner setup and learner check, the pipeline
-and context phases' ring check, launch counts and gangs, and the expert,
-tensor-ResNet, elastic and mesh-learner phases' gangs and their checks."""
+and context phases' ring check, launch counts and gangs, the expert,
+tensor-ResNet, elastic and mesh-learner phases' gangs and their checks, and
+the predictor, Data, Serve and Tune phases at nano size."""
 
 import os
 import sys
@@ -757,3 +758,59 @@ def test_serve_phase_runs_on_the_cpu(monkeypatch, capsys):
     no_serve = _kernel(launches_per_path={**per_path, "predictor": 12, "batch_predictor": 12})
     assert chip_smoke.check_kernels_line({"kernels": [no_serve, bwd]}, paths) == [
         "flash_fwd: no launch on serve"]
+
+
+# ------------------------------------------------------------------ Tune
+def test_tune_phase_runs_on_the_cpu(monkeypatch, capsys):
+    # The tune phase at nano size on the CPU, on a runtime with one logical
+    # GPU (each trial's worker or actor holds 0.5 of it; no CUDA is touched):
+    # the Trainer sweep's workers and the PBT trial actors count their plain
+    # attention calls as launches.
+    import json
+
+    from ray_tpu_torch._private.accelerators import gpu
+    from ray_tpu_torch.models import GPTConfig
+
+    monkeypatch.setattr(gpu, "default_device", lambda: torch.device("cpu"))
+    cfg = GPTConfig.nano()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.run_tune_phase("cpu", cfg=cfg, device="cpu", batch=2, pbt_batch=2,
+                                             seq=32)
+    finally:
+        torch.set_num_threads(threads)
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert [x["phase"] for x in lines] == ["tune", "tune_shutdown"]
+    line, down = lines
+    sweep, pbt = line["sweep"], line["pbt"]
+    # Two trials of one worker each, 4 steps, the kernels once a layer each way.
+    assert [t["lr"] for t in sweep["trials"]] == list(chip_smoke.TUNE_LRS)
+    per_step = {"flash_fwd": cfg.n_layer, "flash_bwd": cfg.n_layer}
+    assert all(t["launches_per_step"] == [per_step] * chip_smoke.TUNE_STEPS
+               for t in sweep["trials"])
+    assert sweep["first_losses_bit_equal"] and sweep["first_loss_abs_err"] <= chip_smoke.LOSS_TOL
+    assert sweep["workers_overlap_s"] > 0 and 0.0 in sweep["gpu_free_seen_by_driver"]
+    assert {v for t in sweep["trials"] for v in t["worker_visible"]} == {"0"}
+    assert sweep["best_trial"] == sweep["lowest_last_loss_trial"]
+    assert sweep["gpu_free_after"] == 1.0 and sweep["pids_alive_after"] == []
+    # PBT: at least one exploit, the donor's params bit for bit, its config
+    # with lr explored; the device probe lands in the journal as a CPU tensor.
+    assert pbt["exploits"] and all(
+        e["sha_on_card"] == e["sha_donor_checkpoint"] and e["config_is_donors_explored"]
+        for e in pbt["exploits"])
+    assert pbt["checkpoints"] >= 2 and pbt["journal_and_spec_probe_devices"] == ["cpu"]
+    assert pbt["gpu_free_after"] == 1.0 and pbt["pids_alive_after"] == []
+    assert down["leftover_session_dirs"] == [] and down["leftover_worker_pids"] == []
+    steps = chip_smoke.TUNE_STEPS * 2 + sum(len(t["steps"]) for t in pbt["trials"])
+    assert launches == {"flash_fwd": steps * cfg.n_layer, "flash_bwd": steps * cfg.n_layer}
+    # The kernels line: Tune on both kernels.
+    per_path = {p: 12 for p in chip_smoke.KERNEL_PATHS}
+    paths = chip_smoke.KERNEL_PATHS_BY_KERNEL
+    fwd = _kernel(launches_per_path={**per_path, "predictor": 12, "batch_predictor": 12,
+                                     "serve": 12})
+    bwd = _kernel(name="flash_bwd", launches_per_path=per_path)
+    assert chip_smoke.check_kernels_line({"kernels": [fwd, bwd]}, paths) == []
+    no_tune = _kernel(name="flash_bwd", launches_per_path={**per_path, "tune": 0})
+    assert chip_smoke.check_kernels_line({"kernels": [fwd, no_tune]}, paths) == [
+        "flash_bwd: no launch on tune"]

@@ -2,10 +2,11 @@
 (``ray_tpu.dag``) on the CPU: both runtimes run in this process, and each
 graph is bound and executed through each package with the same inputs.
 
-The first three cases are the DAG cases of ``tests/test_dag_workflow.py``
-(which the Serve suites' harness cannot copy: it imports ``workflow`` at
-module level, not ported yet). The rest hold the nodes' options, keyword
-arguments, an actor constructed once per ``execute`` and a root InputNode.
+The first three cases are the DAG cases of ``tests/test_dag_workflow.py``,
+held here against the JAX package (the Tune and workflow suites' harness
+also runs that file against the port). The rest hold the nodes' options,
+keyword arguments, an actor constructed once per ``execute`` and a root
+InputNode.
 """
 
 import pytest

@@ -97,6 +97,52 @@ def test_data_runs_without_pyarrow_and_pandas(tmp_path):
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
 
 
+def test_tune_runs_without_pandas(tmp_path):
+    # The card's machine has no pandas: importing Tune and running a sweep
+    # (a scheduler, a searcher and a restore) must not need it; only
+    # ResultGrid.get_dataframe imports it. This process blocks it in
+    # sys.modules; its workers find a stub that raises on import.
+    (tmp_path / "pandas.py").write_text("raise ImportError('pandas is blocked')\n")
+    code = (
+        "import sys\n"
+        "sys.modules['pandas'] = None\n"
+        "import ray_tpu_torch\n"
+        "from ray_tpu_torch import tune, workflow\n"
+        "from ray_tpu_torch.air import RunConfig\n"
+        "from ray_tpu_torch.tune.schedulers import ASHAScheduler\n"
+        f"root = {str(tmp_path)!r}\n"
+        "ray_tpu_torch.init(num_cpus=2)\n"
+        "try:\n"
+        "    def f(config):\n"
+        "        from ray_tpu_torch.air import session\n"
+        "        for i in range(3):\n"
+        "            session.report({'score': config['x'] * (i + 1)})\n"
+        "    grid = tune.Tuner(f, param_space={'x': tune.grid_search([1, 2])},\n"
+        "        tune_config=tune.TuneConfig(metric='score', mode='max',\n"
+        "            scheduler=ASHAScheduler(max_t=3, grace_period=1)),\n"
+        "        run_config=RunConfig(name='e', storage_path=root)).fit()\n"
+        "    assert grid.get_best_result().metrics['score'] == 6\n"
+        "    again = tune.Tuner.restore(root + '/e').fit()\n"
+        "    assert sorted(r.metrics['score'] for r in again) == [3, 6]\n"
+        "    try:\n"
+        "        grid.get_dataframe()\n"
+        "    except ImportError:\n"
+        "        pass\n"
+        "    else:\n"
+        "        raise AssertionError('get_dataframe without pandas')\n"
+        "finally:\n"
+        "    ray_tpu_torch.shutdown()\n"
+        "assert sys.modules['pandas'] is None\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), ROOT])
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stdout + proc.stderr
+
+
 WEB_PACKAGES = ("aiohttp", "fastapi", "starlette", "uvicorn")
 
 

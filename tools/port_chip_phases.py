@@ -21,10 +21,14 @@ check) or ``data`` (``batch_predictor`` and ``data_ingest`` on GPT-2 small
 from seed 0, on a runtime of their own, then its shutdown check) or ``serve``
 (GPT-2 small from seed 0 behind Serve on two 0.5-GPU replicas over HTTP and
 a handle, then a multiplexed replica, on a runtime of its own, then its
-shutdown check). The phases run in this process, after the
-flags ``chip_smoke.py`` sets (no TF32); each prints its JSON line, and the
-card's name and power limit come first. Run one checkout per process: both
-trees name their package ``ray_tpu_torch``. For an A/B, alternate them:
+shutdown check) or ``tune`` (a Trainer sweep of two 0.5-GPU trials of GPT-2
+small from seed 0, then PBT on two 0.5-GPU function trials with an exploit,
+on a runtime of its own, then its shutdown check). The kernels are built
+first, as ``chip_smoke.py``'s build phase does, so that no phase's first
+call waits on ``nvcc``. The phases run in this process, after the flags
+``chip_smoke.py`` sets (no TF32); each prints its JSON line, and the card's
+name and power limit come first. Run one checkout per process: both trees
+name their package ``ray_tpu_torch``. For an A/B, alternate them:
 parent, change, change, parent.
 """
 
@@ -40,7 +44,7 @@ PHASES = {"resnet50": "phase_resnet50", "rl_learner_check": "phase_rl_learner_ch
           "rl": "run_rl_phases", "mesh": "run_mesh_phases", "pipe_ctx": "run_pipe_ctx_phases",
           "mesh_rest": "run_mesh_rest_phases", "predictor": "phase_predictor",
           "rl_multi_agent": "run_rl_multi_agent", "data": "run_data_phases",
-          "serve": "run_serve_phase"}
+          "serve": "run_serve_phase", "tune": "run_tune_phase"}
 
 
 def main(argv=None):
@@ -55,11 +59,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("port_chip_phases: no CUDA device")
     import chip_smoke
+    from ray_tpu_torch.ops import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = chip_smoke.nvidia_smi()
-    print(json.dumps({"checkout": checkout, "card": smi, "phases": args.phases}), flush=True)
+    print(json.dumps({"checkout": checkout, "card": smi, "phases": args.phases,
+                      "build_s": _build.build()}), flush=True)
     for phase in args.phases:
         getattr(chip_smoke, PHASES[phase])(smi)
 
