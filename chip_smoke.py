@@ -89,6 +89,25 @@ exits non-zero and prints no result.
    seconds, the checkpoints' MB and persist seconds, trial actor starts,
    each trial's tokens/s, wall time and peak memory printed;
    ``tune_shutdown``.
+   Then the operator's path, ``cli_job``: ``python -m ray_tpu_torch start
+   --head --num-gpus 1 --dashboard-port 0`` (HOME a temporary directory),
+   ``job submit`` of a script that joins the cluster through
+   ``RAY_TPU_TORCH_ADDRESS`` and trains the main path's model from seed 0 at
+   B 8 x S 1024 for 4 steps through ``TorchTrainer`` on one GPU worker; while
+   the worker waits at step 1 for a KV flag, ``list actors`` shows it holding
+   ``GPU`` 1.0 with device id "0" and the job's supervisor holding no GPU;
+   after the job, ``job status`` SUCCEEDED, ``job logs`` with the script's
+   line (the entrypoint saw ``CUDA_VISIBLE_DEVICES`` "", the worker "0" and
+   ``cuda:0``, 12 + 12 launches a step, the first loss within 1e-3 of plain
+   attention on the same batch), ``status`` with ``GPU`` 1.0 free, ``train
+   --json`` (the goodput ledger: 4 steps, buckets summing to its wall time),
+   ``timeline --output`` (the worker's task intervals); ``/api/cluster``,
+   ``/api/jobs``, ``/api/train`` and ``/metrics`` agreeing with the CLI, no
+   aiohttp in the head; then ``stop``: no process of the head's tree left,
+   none on the card, its session directory gone. The read-only commands run
+   as ``scripts.cli.main`` in this process; the seconds from head start to
+   ready, from submit to RUNNING, to the first step and to SUCCEEDED, the
+   warm tokens/s and the goodput fraction printed.
 6b. collectives and the mesh: ``collective_nccl``, every op of
    ``ray_tpu_torch.util.collective`` on a world-1 NCCL group over CUDA
    tensors, f32 and bf16, each result checked and on ``cuda:0``; then
@@ -176,8 +195,8 @@ exits non-zero and prints no result.
    launched by these phases).
 10. a ``kernels`` line (launches per path: ``KERNEL_PATHS_BY_KERNEL``, the
    predictor's, the batch predictor's (its actors' sum) and Serve's (its
-   replicas' sum) forward only; Tune's, every trial's summed; rank 0's on a
-   gang; times at the Llama shape and of the ring's blocks with one SDPA
+   replicas' sum) forward only; Tune's, every trial's summed; the CLI job's,
+   its worker's; rank 0's on a gang; times at the Llama shape and of the ring's blocks with one SDPA
    call on the whole sequence beside them), checked for the keys the
    contract names,
    then the card's name and power limit, and last
@@ -651,7 +670,8 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 # The training paths the kernels line counts launches on: each must launch both
 # kernels.
 KERNEL_PATHS = ("main_path", "trainer", "mesh_gang", "pipeline_gang", "context_gang", "llama",
-                "moe", "remat_dots", "expert_gang", "elastic_reshard", "data_ingest", "tune")
+                "moe", "remat_dots", "expert_gang", "elastic_reshard", "data_ingest", "tune",
+                "cli_job")
 # The paths each kernel must launch on: the predictor, the batch predictor's
 # pool actors and Serve's replicas (inference) run the forward only, so the
 # backward must show 0 launches there.
@@ -3397,6 +3417,404 @@ def run_tune_phase(smi, cfg=None, device=None, **sizes):
     return line["launches"]
 
 
+# ---------------------------------------------------------------------------- the CLI
+# The cli_job phase: the operator's path through the port's CLI processes. A
+# head (``python -m ray_tpu_torch start --head --num-gpus 1 --dashboard-port
+# 0``, HOME a temporary directory, where the CLI keeps its state file), a job
+# submitted to it (``job submit``) whose entrypoint trains the main path's
+# model from seed 0 at B CLI_JOB_B x S 1024 for CLI_JOB_STEPS steps through
+# TorchTrainer on one GPU worker, the cluster's state read through the CLI
+# while the worker waits at a step for a KV flag and after the job, the same
+# state through the dashboard, then ``stop``. The first loss is held to plain
+# attention on the same batch with the main path's limit (LOSS_TOL), as the
+# tune phase holds its own.
+CLI_JOB_B, CLI_JOB_STEPS, CLI_JOB_WAIT_STEP = 8, 4, 1
+CLI_JOB_FLAG = "chip_smoke_cli_job"
+
+
+def cli_job_train_loop(config):
+    """The cli_job phase's per-worker loop: the main path's model and AdamW
+    from seed 0, ``config["steps"]`` steps on one batch, a report every step
+    (``tune_steps``) with the records so far; after step
+    ``config["wait_step"]`` it marks itself at that step in the KV and waits
+    for the flag of the process that runs the phase, which reads the
+    cluster's state meanwhile."""
+    stamps = {"process_start": process_start_time(), "loop_start": time.time()}
+    import torch
+
+    from ray_tpu_torch._private.worker import global_worker
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import create_train_state, default_optimizer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = config["cfg"]
+    if config["device"] == "cpu":
+        count_plain_attention()
+    opt = default_optimizer(learning_rate=3e-4)
+    state = create_train_state(cfg, 0, opt, device=config["device"])
+    batch = tune_batch(cfg, config["batch"], config["seq"], state.params["wte"].device)
+    stamps["workload_built"] = time.time()
+    history, kv = [], global_worker.context.kv
+
+    def report(i, state, record):
+        history.append(record)
+        session.report({**record, "history": list(history), "stamps": stamps})
+        if i == config["wait_step"]:
+            t0 = time.time()
+            kv("put", f"{config['flag']}/at_step".encode(), str(i).encode())
+            while (kv("get", f"{config['flag']}/go".encode()) is None
+                   and time.time() - t0 < config["wait_timeout_s"]):
+                time.sleep(0.02)
+            stamps["waited_for_the_driver_s"] = time.time() - t0
+
+    tune_steps(state, make_train_step(cfg, opt), batch, config["steps"], 1, report)
+
+
+def cli_job_entrypoint(config_path):
+    """The cli_job phase's job entrypoint, run by the job's supervisor: join
+    the cluster through ``RAY_TPU_TORCH_ADDRESS``, train through
+    ``TorchTrainer`` with one GPU worker, and print one ``CLI_JOB {...}``
+    line (the job's logs) with what the entrypoint saw and what the worker
+    reported."""
+    import pickle
+
+    t_start = time.time()
+    entry_visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    with open(config_path, "rb") as f:
+        config = pickle.load(f)
+    import ray_tpu_torch
+    import ray_tpu_torch.train.torch as rt_torch
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+
+    ray_tpu_torch.init(address=os.environ["RAY_TPU_TORCH_ADDRESS"])
+    t_init = time.time()
+    on_cpu = config["device"] == "cpu"
+    trainer = rt_torch.TorchTrainer(
+        cli_job_train_loop, train_loop_config=config,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        backend_config=rt_torch.TorchConfig(device="cpu") if on_cpu else None,
+        run_config=RunConfig(name="chip_smoke_cli_job", storage_path=config["results"]))
+    result = trainer.fit()
+    if result.error is not None:
+        raise result.error
+    out = {"entrypoint_visible": entry_visible, "entrypoint_pid": os.getpid(),
+           "job_id": os.environ.get("RAY_TPU_TORCH_JOB_ID"), "start": t_start,
+           "init_s": t_init - t_start, "fit_s": time.time() - t_init,
+           "history": result.metrics["history"], "stamps": result.metrics["stamps"]}
+    print("CLI_JOB " + json.dumps(out), flush=True)
+    ray_tpu_torch.shutdown()
+
+
+def process_tree(root):
+    """``root`` and every process below it, by the parent pids in /proc."""
+    children = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except OSError:
+                continue
+            children.setdefault(ppid, []).append(int(d))
+    out, todo = set(), [root]
+    while todo:
+        pid = todo.pop()
+        if pid not in out:
+            out.add(pid)
+            todo += children.get(pid, [])
+    return out
+
+
+def cuda_pids():
+    """Pids of the processes holding a CUDA context, as ``nvidia-smi`` lists
+    them; None where there is no ``nvidia-smi`` (a CPU rehearsal)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                             capture_output=True, text=True, check=True).stdout
+    except FileNotFoundError:
+        return None
+    return sorted(int(x) for x in out.split() if x.strip().isdigit())
+
+
+def package_in_process(pid, name):
+    """Whether package ``name`` is installed here, whether it has compiled
+    extensions (which ``import name`` maps into a process), and whether
+    process ``pid`` has one of its files mapped."""
+    spec = importlib.util.find_spec(name)
+    where = os.path.dirname(spec.origin) if spec and spec.origin else None
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            mapped = f"/{name}/" in f.read()
+    except OSError:
+        mapped = None
+    return {"installed": spec is not None, "origin": spec.origin if spec else None,
+            "compiled_extensions": sorted(os.path.basename(p) for p in glob.glob(
+                os.path.join(where, "**", "*.so"), recursive=True)) if where else [],
+            "mapped_in_process": mapped}
+
+
+def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_JOB_STEPS,
+                  timeout_s=600.0):
+    """The operator's path, from head start to ``stop``, through the port's
+    CLI processes (constants above); ``start``, ``job submit`` and ``stop``
+    run as processes, the read-only commands as ``scripts.cli.main`` in this
+    process over one client connection. Returns the worker's launches."""
+    import io
+    import pickle
+    import shlex
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private.accelerators.gpu import resolve_device
+    from ray_tpu_torch.models import GPTConfig, gpt
+    from ray_tpu_torch.scripts import cli
+
+    cfg = cfg or GPTConfig.gpt2_small()
+    dev = resolve_device(device)
+    on_cpu = dev.type == "cpu"
+    root = os.path.dirname(os.path.abspath(__file__))
+    home = tempfile.mkdtemp(prefix="chip_smoke_cli_job_")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAY_TPU_TORCH_")}
+    env.update(HOME=home, PYTHONPATH=root)
+    t_start = time.perf_counter()
+    # nvidia-smi may list a container's processes under another pid (all as
+    # 1 on the card's machine), so the processes on the card are counted
+    # too: after stop, no more than before the head started.
+    cuda_before = cuda_pids()
+
+    def run(*args):
+        t0 = time.time()
+        p = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *args], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=timeout_s)
+        require(p.returncode == 0, f"cli_job: {' '.join(args)}: rc {p.returncode}\n"
+                                   f"{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+        return p.stdout, time.time() - t0
+
+    # 1. The head.
+    out, head_start_s = run("start", "--head", "--num-gpus", "1", "--dashboard-port", "0")
+    with open(os.path.join(home, ".ray_tpu_torch", "cli_state.json")) as f:
+        head = json.load(f)["head"]
+    saved_key = os.environ.get("RAY_TPU_TORCH_AUTHKEY_HEX")
+    os.environ["RAY_TPU_TORCH_AUTHKEY_HEX"] = head["authkey_hex"]
+    connected = False
+    try:
+        ray_tpu_torch.init(address=head["address"])
+        connected = True
+        kv = ray_tpu_torch._private.worker.global_worker.context.kv
+
+        def read(*args):
+            """``python -m ray_tpu_torch <args>``'s output, in this process
+            over the one client connection (the CLI's _connect would init()
+            each time)."""
+            buf = io.StringIO()
+            connect, cli._connect = cli._connect, lambda ns: ray_tpu_torch
+            try:
+                with contextlib.redirect_stdout(buf):
+                    cli.main(list(args))
+            finally:
+                cli._connect = connect
+            return buf.getvalue()
+
+        status0 = json.loads(read("status"))
+        # 2. The job.
+        results = os.path.join(home, "results")
+        config_path = os.path.join(home, "job_config.pkl")
+        with open(config_path, "wb") as f:
+            pickle.dump({"cfg": cfg, "batch": batch, "seq": seq, "steps": steps,
+                         "device": "cpu" if on_cpu else None, "results": results,
+                         "flag": CLI_JOB_FLAG, "wait_step": CLI_JOB_WAIT_STEP,
+                         "wait_timeout_s": timeout_s}, f)
+        script = os.path.join(home, "job_train.py")
+        with open(script, "w") as f:
+            f.write(f"import sys\nsys.path.insert(0, {root!r})\nimport chip_smoke\n\n"
+                    f"chip_smoke.cli_job_entrypoint({config_path!r})\n")
+        t_submit = time.time()
+        out, submit_s = run("job", "submit", "--entrypoint",
+                            f"{shlex.quote(sys.executable)} {shlex.quote(script)}")
+        job_id = out.split()[0]
+        # 3. The state while the worker waits at its step.
+        t_running = None
+        deadline = time.time() + timeout_s
+        while kv("get", f"{CLI_JOB_FLAG}/at_step".encode()) is None:
+            st = read("job", "status", job_id).strip()
+            if t_running is None and st != "PENDING":
+                t_running = time.time()
+            require(st in ("PENDING", "RUNNING") and time.time() < deadline,
+                    f"cli_job: job {job_id} {st} before its worker reached step "
+                    f"{CLI_JOB_WAIT_STEP}:\n{read('job', 'logs', job_id)[-3000:]}")
+            time.sleep(0.05)
+        t_at_step = time.time()
+        t_running = t_running or t_at_step
+        during = json.loads(read("list", "actors"))
+        status_during = json.loads(read("status"))
+        nodes_during = json.loads(read("list", "nodes"))
+        tree_during = process_tree(head["pid"])
+        cuda_during = cuda_pids()
+        kv("put", f"{CLI_JOB_FLAG}/go".encode(), b"1")
+        # 4. The state after the job.
+        while True:
+            st = read("job", "status", job_id).strip()
+            if st in ("SUCCEEDED", "FAILED", "STOPPED") or time.time() > deadline:
+                break
+            time.sleep(0.1)
+        t_done = time.time()
+        logs = read("job", "logs", job_id)
+        require(st == "SUCCEEDED", f"cli_job: job {job_id} {st}:\n{logs[-4000:]}")
+        job_out = json.loads(next(ln for ln in logs.splitlines()
+                                  if ln.startswith("CLI_JOB "))[len("CLI_JOB "):])
+        while json.loads(read("status"))["available_resources"].get("GPU") != 1.0 and \
+                time.time() < deadline:
+            time.sleep(0.1)
+        status_after = json.loads(read("status"))
+        train = json.loads(read("train", "--json"))
+        jobs = json.loads(read("jobs", "--json"))
+        timeline_path = os.path.join(home, "timeline.json")
+        read("timeline", "--output", timeline_path)
+        with open(timeline_path) as f:
+            timeline = json.load(f)
+        # 5. The same state through the dashboard.
+        base = f"http://127.0.0.1:{head['dashboard_port']}"
+
+        def http(path):
+            with urllib.request.urlopen(base + path, timeout=60) as resp:
+                return resp.status, resp.read().decode()
+
+        api = {k: json.loads(http(f"/api/{k}")[1]) for k in ("cluster", "jobs", "train")}
+        metrics_status, metrics = http("/metrics")
+        head_aiohttp = package_in_process(head["pid"], "aiohttp")  # while the head lives
+        tree_after = process_tree(head["pid"])
+    finally:
+        if connected:
+            ray_tpu_torch.shutdown()
+        if saved_key is None:
+            os.environ.pop("RAY_TPU_TORCH_AUTHKEY_HEX", None)
+        else:
+            os.environ["RAY_TPU_TORCH_AUTHKEY_HEX"] = saved_key
+        # 6. Stop the head.
+        t0 = time.time()
+        stop_out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "stop"], cwd=root,
+                                  env=env, capture_output=True, text=True, timeout=timeout_s)
+        stop_s = time.time() - t0
+    tree = sorted(tree_during | tree_after)
+    deadline = time.time() + 30
+    while any(pid_alive(p) for p in tree) and time.time() < deadline:
+        time.sleep(0.1)
+    stop_wait_s = time.time() - t0
+    alive = sorted(p for p in tree if pid_alive(p))
+    on_card = cuda_pids()
+    session_left = os.path.exists(head["session_dir"])
+    shutil.rmtree(home, ignore_errors=True)
+
+    history, stamps = job_out["history"], job_out["stamps"]
+    worker = [a for a in during if a["class_name"] == "RayTrainWorker" and a["state"] == "ALIVE"]
+    sup = [a for a in during if (a["name"] or "").startswith(f"JOB_SUPERVISOR::{job_id}")]
+    ref_loss, _ = first_step_reference(cfg, tune_batch(cfg, batch, seq, dev), gpt)
+    losses = [r["loss"] for r in history]
+    warm = [r["t1"] - r["t0"] for r in history[1:]] or [history[0]["t1"] - history[0]["t0"]]
+    (gang,) = [g for g in train["gangs"].values() if g.get("steps") == steps] or [None]
+    bucket_sum = sum(gang["buckets"].values()) if gang else None
+    task_events = [e for e in timeline if e.get("cat") == "task"]
+    worker_tasks = [e for e in task_events if e["name"].startswith("RayTrainWorker.")]
+    launches = {k: sum(r["launches"][k] for r in history) for k in ("flash_fwd", "flash_bwd")}
+    line = {
+        "phase": "cli_job", "n_layer": cfg.n_layer, "d_model": cfg.d_model,
+        "dtype": str(cfg.dtype).replace("torch.", ""), "batch": batch, "seq": seq,
+        "steps": steps, "job_id": job_id,
+        "head": {"pid": head["pid"], "start_s": head_start_s, "dashboard_port":
+                 head["dashboard_port"], "cluster_resources": status0["cluster_resources"]},
+        "seconds": {"head_start_to_ready": head_start_s, "submit_process": submit_s,
+                    "submit_to_running": t_running - t_submit,
+                    "submit_to_first_step": history[0]["t1"] - t_submit,
+                    "submit_to_worker_process": stamps["process_start"] - t_submit,
+                    "worker_process_to_workload_built":
+                        stamps["workload_built"] - stamps["process_start"],
+                    "first_step": history[0]["t1"] - history[0]["t0"],
+                    "worker_waited_for_the_driver": stamps.get("waited_for_the_driver_s"),
+                    "at_step_to_succeeded": t_done - t_at_step,
+                    "submit_to_succeeded": t_done - t_submit, "stop_process": stop_s,
+                    "stop_to_tree_gone": stop_wait_s,
+                    "job_entrypoint_init": job_out["init_s"], "job_fit": job_out["fit_s"]},
+        "entrypoint_visible": job_out["entrypoint_visible"],
+        "worker": {"pid": history[0]["pid"], "visible": sorted({r["visible"] for r in history}),
+                   "device": sorted({r["device"] for r in history}), "losses": losses,
+                   "launches_per_step": [r["launches"] for r in history],
+                   "step_s": [r["t1"] - r["t0"] for r in history],
+                   "tokens_per_s_warm": batch * seq / statistics.median(warm),
+                   "peak_memory_gib": max(r["peak_memory_gib"] for r in history),
+                   "gpu_free_in_worker": sorted({r["gpu_free"] for r in history})},
+        "first_step_reference": ref_loss, "first_loss_abs_err": abs(losses[0] - ref_loss),
+        "tol": LOSS_TOL,
+        "list_actors_during": {"worker": worker, "supervisor": sup},
+        "gpu_during": {"available": status_during["available_resources"].get("GPU"),
+                       "node_available": [n["available"].get("GPU") for n in nodes_during]},
+        "job_status": st, "logs_hold_the_json_line": True,
+        "gpu_after": {"available": status_after["available_resources"].get("GPU"),
+                      "total": status_after["cluster_resources"].get("GPU")},
+        "goodput": {k: gang[k] for k in ("steps", "wall_s", "buckets", "coverage",
+                                        "goodput_frac")} if gang else None,
+        "goodput_bucket_sum_s": bucket_sum,
+        "timeline": {"events": len(timeline), "task_events": len(task_events),
+                     "worker_task_events": len(worker_tasks),
+                     "cats": sorted({e.get("cat") for e in timeline})},
+        "dashboard": {"cluster_equals_status": api["cluster"]["cluster_resources"] ==
+                      status_after["cluster_resources"] and
+                      api["cluster"]["available_resources"] == status_after["available_resources"],
+                      "jobs_equal_cli": {j["job"]: j["state"] for j in api["jobs"]} ==
+                      {j["job"]: j["state"] for j in jobs},
+                      "train_equals_cli": api["train"] == train,
+                      "metrics_status": metrics_status,
+                      "metrics_has_scheduler_counters":
+                          "ray_tpu_scheduler_tasks_dispatched_total" in metrics},
+        "head_aiohttp": head_aiohttp,
+        "stop": {"stdout": stop_out.stdout.strip(), "rc": stop_out.returncode,
+                 "tree": tree, "alive_after": alive, "cuda_pids_before": cuda_before,
+                 "cuda_pids_during": cuda_during, "cuda_pids_after": on_card,
+                 "tree_on_card_after": sorted(set(tree) & set(on_card or ())),
+                 "session_dir_left": session_left},
+        "launches": launches, "wall_s": time.perf_counter() - t_start, "card": smi}
+    emit(line)
+
+    per_step = {"flash_fwd": cfg.n_layer, "flash_bwd": cfg.n_layer}
+    require(status0["cluster_resources"].get("GPU") == 1.0,
+            f"cli_job: the head's cluster {status0['cluster_resources']}")
+    require(len(history) == steps and all(math.isfinite(x) for x in losses),
+            f"cli_job: worker losses {losses}")
+    require(all(r["launches"] == per_step for r in history),
+            f"cli_job: launches per step {[r['launches'] for r in history]}")
+    require(line["worker"]["visible"] == ["0"], f"cli_job: worker saw {line['worker']['visible']}")
+    if not on_cpu:
+        require(line["worker"]["device"] == ["cuda:0"],
+                f"cli_job: worker ran on {line['worker']['device']}")
+    require(job_out["entrypoint_visible"] == "",
+            f"cli_job: the entrypoint saw CUDA_VISIBLE_DEVICES {job_out['entrypoint_visible']!r}")
+    require(line["first_loss_abs_err"] <= LOSS_TOL,
+            f"cli_job: first loss {losses[0]} vs plain attention {ref_loss}")
+    require(len(worker) == 1 and worker[0]["resources"].get("GPU") == 1.0
+            and worker[0]["gpu_ids"] == ["0"], f"cli_job: list actors showed the worker {worker}")
+    require(len(sup) == 1 and sup[0]["state"] == "ALIVE" and not sup[0]["resources"].get("GPU")
+            and sup[0]["gpu_ids"] == [], f"cli_job: list actors showed the supervisor {sup}")
+    require(line["gpu_during"]["available"] == 0.0, f"cli_job: GPU during {line['gpu_during']}")
+    require(line["gpu_after"] == {"available": 1.0, "total": 1.0},
+            f"cli_job: GPU after the job {line['gpu_after']}")
+    require(gang is not None and abs(bucket_sum - gang["wall_s"]) <= 1e-3 + 1e-3 * gang["wall_s"],
+            f"cli_job: goodput ledger {train}")
+    require(worker_tasks, f"cli_job: the timeline holds no task of the worker "
+                          f"({sorted({e['name'] for e in task_events})})")
+    require(all(line["dashboard"][k] for k in ("cluster_equals_status", "jobs_equal_cli",
+                                               "train_equals_cli",
+                                               "metrics_has_scheduler_counters"))
+            and metrics_status == 200, f"cli_job: dashboard {line['dashboard']}")
+    require(line["head_aiohttp"]["mapped_in_process"] is False,
+            f"cli_job: the head loaded aiohttp: {line['head_aiohttp']}")
+    require(stop_out.returncode == 0 and not alive and not session_left
+            and not line["stop"]["tree_on_card_after"]
+            and len(on_card or ()) <= len(cuda_before or ()),
+            f"cli_job: after stop: {line['stop']}")
+    return launches
+
+
 # ---------------------------------------------------------------------------- RLlib
 # The RL phases' CartPole: gymnasium's CartPole-v1 (envs/classic_control/
 # cartpole.py: dynamics, thresholds, reset draw) under its 500-step TimeLimit,
@@ -4954,6 +5372,7 @@ def main():
     del main_params
     torch.cuda.empty_cache()
     tune_launches = run_tune_phase(smi)
+    cli_job_launches = phase_cli_job(smi)
 
     # ------------------------------------------------------------------ 6b. collectives, the mesh
     phase_collective_nccl(smi)
@@ -4994,6 +5413,7 @@ def main():
                                 "predictor": predictor_launches[name],
                                 **{path: n[name] for path, n in data_launches.items()},
                                 "serve": serve_launches[name], "tune": tune_launches[name],
+                                "cli_job": cli_job_launches[name],
                                 "mesh_gang": mesh_launches[name],
                                 **{path: n[name] for path, n in gang_launches.items()},
                                 **{path: n[name] for path, n in zoo_launches.items()}}

@@ -1,0 +1,6 @@
+"""`python -m ray_tpu_torch <command>` — the CLI entry point."""
+
+from ray_tpu_torch.scripts.cli import main
+
+if __name__ == "__main__":
+    main()

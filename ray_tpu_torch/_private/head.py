@@ -53,7 +53,7 @@ def main() -> None:
     )
     ns = parser.parse_args()
 
-    from ray_tpu_torch._private.accelerators.gpu import detect_num_gpus
+    from ray_tpu_torch._private.accelerators.gpu import detect_num_gpus, visible_gpu_ids
     from ray_tpu_torch._private.config import Config, set_config
     from ray_tpu_torch._private.gcs import GCS
     from ray_tpu_torch._private.scheduler import Scheduler
@@ -88,13 +88,7 @@ def main() -> None:
                 gcs.kv_put(key, b"FAILED")
                 # Leave a queryable record of WHY (reference: GcsJobManager
                 # marks running jobs dead with a death cause on recovery).
-                try:
-                    from ray_tpu_torch.job_submission.client import _message_key
-                except ImportError as e:
-                    raise NotImplementedError(
-                        "recovering submitted jobs needs job submission, which is not ported "
-                        "yet: ROADMAP.md Queue 1 item 2"
-                    ) from e
+                from ray_tpu_torch.job_submission.client import _message_key
 
                 job_id = key[len(b"job::"): -len(b"::status")].decode()
                 gcs.kv_put(
@@ -107,7 +101,9 @@ def main() -> None:
     )
     scheduler.start()
     labels = {"head": "1"}  # no GPU topology labels yet (ROADMAP.md Queue 1 item 8)
-    scheduler.call("add_node", (resources, labels)).result()
+    # The node's device ids, as init() gives the in-process head's: what an
+    # actor holding `GPU` finds in its CUDA_VISIBLE_DEVICES.
+    scheduler.call("add_node", (resources, labels, visible_gpu_ids(int(num_gpus or 0)))).result()
 
     # Restart persisted detached actors (reference: GcsActorManager restoring
     # detached actors from Redis on GCS recovery). Creation replays, so the
@@ -140,18 +136,14 @@ def main() -> None:
 
     dashboard_port = None
     if ns.dashboard_port is not None:
-        try:
-            from ray_tpu_torch.dashboard import start_dashboard
-        except ImportError as e:
-            raise NotImplementedError(
-                "--dashboard-port: the dashboard is not ported yet: ROADMAP.md Queue 1 item 2"
-            ) from e
         # The dashboard needs a driver context for state queries: the head
         # process self-connects as a client driver.
         import ray_tpu_torch
 
         os.environ["RAY_TPU_TORCH_AUTHKEY_HEX"] = scheduler.authkey.hex()
         ray_tpu_torch.init(address=f"{scheduler.tcp_address[0]}:{scheduler.tcp_address[1]}")
+        from ray_tpu_torch.dashboard import start_dashboard
+
         dashboard_port = start_dashboard(ns.host, ns.dashboard_port).port
 
     def _signal(_sig, _frm):

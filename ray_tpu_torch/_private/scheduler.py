@@ -4025,18 +4025,24 @@ class Scheduler:
 
     def _cmd_list_actors(self, payload=None):
         job = payload.get("job") if isinstance(payload, dict) else None
-        return [
-            {
+        out = []
+        for a in self.gcs.actors.values():
+            if job is not None and a.actor_id.job_id.hex() != job:
+                continue
+            ar = self.actors.get(a.actor_id)
+            out.append({
                 "actor_id": a.actor_id.hex(),
                 "job_id": a.actor_id.job_id.hex(),
                 "name": a.name,
                 "class_name": a.class_name,
                 "state": a.state,
                 "num_restarts": a.num_restarts,
-            }
-            for a in self.gcs.actors.values()
-            if job is None or a.actor_id.job_id.hex() == job
-        ]
+                # What the actor holds while it lives (its GPU share among
+                # them) and the device ids its CUDA_VISIBLE_DEVICES names.
+                "resources": dict(ar.acquired) if ar is not None else {},
+                "gpu_ids": list(ar.gpu_ids) if ar is not None else [],
+            })
+        return out
 
     # ------------------------------------------------------------------ worker requests
     def _req_submit(self, wh: WorkerHandle, req_id: int, payload):

@@ -814,3 +814,54 @@ def test_tune_phase_runs_on_the_cpu(monkeypatch, capsys):
     no_tune = _kernel(name="flash_bwd", launches_per_path={**per_path, "tune": 0})
     assert chip_smoke.check_kernels_line({"kernels": [fwd, no_tune]}, paths) == [
         "flash_bwd: no launch on tune"]
+
+
+# ------------------------------------------------------------------ the CLI
+def test_cli_job_phase_runs_on_the_cpu(monkeypatch, capsys):
+    # The cli_job phase at nano size on the CPU: a head started by the CLI
+    # with one logical GPU (no CUDA is touched), a submitted job whose Train
+    # worker holds it and counts its plain attention calls as launches, the
+    # state through the CLI and the dashboard, then stop.
+    import json
+
+    from ray_tpu_torch._private.accelerators import gpu
+    from ray_tpu_torch.models import GPTConfig
+
+    monkeypatch.setattr(gpu, "default_device", lambda: torch.device("cpu"))
+    cfg = GPTConfig.nano()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches = chip_smoke.phase_cli_job("cpu", cfg=cfg, device="cpu", batch=2, seq=32)
+    finally:
+        torch.set_num_threads(threads)
+    (line,) = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+    assert line["phase"] == "cli_job" and line["job_status"] == "SUCCEEDED"
+    assert line["head"]["cluster_resources"]["GPU"] == 1.0
+    assert line["entrypoint_visible"] == "" and line["worker"]["visible"] == ["0"]
+    (worker,) = line["list_actors_during"]["worker"]
+    (sup,) = line["list_actors_during"]["supervisor"]
+    assert worker["resources"]["GPU"] == 1.0 and worker["gpu_ids"] == ["0"]
+    assert "GPU" not in sup["resources"] and sup["gpu_ids"] == []
+    assert line["gpu_during"]["available"] == 0.0 and line["gpu_after"]["available"] == 1.0
+    per_step = {"flash_fwd": cfg.n_layer, "flash_bwd": cfg.n_layer}
+    assert line["worker"]["launches_per_step"] == [per_step] * chip_smoke.CLI_JOB_STEPS
+    assert launches == {k: v * chip_smoke.CLI_JOB_STEPS for k, v in per_step.items()}
+    assert line["first_loss_abs_err"] <= chip_smoke.LOSS_TOL
+    assert line["goodput"]["steps"] == chip_smoke.CLI_JOB_STEPS
+    assert abs(line["goodput_bucket_sum_s"] - line["goodput"]["wall_s"]) <= 1e-2
+    assert line["timeline"]["worker_task_events"] > 0
+    assert all(line["dashboard"][k] for k in ("cluster_equals_status", "jobs_equal_cli",
+                                              "train_equals_cli"))
+    assert line["stop"]["alive_after"] == [] and not line["stop"]["session_dir_left"]
+    assert line["head_aiohttp"]["mapped_in_process"] is False  # read while the head lived
+    assert set(line["seconds"]) >= {"head_start_to_ready", "submit_to_running",
+                                    "submit_to_first_step", "submit_to_succeeded"}
+    # The kernels line: the CLI job on both kernels.
+    per_path = {p: 12 for p in chip_smoke.KERNEL_PATHS}
+    paths = chip_smoke.KERNEL_PATHS_BY_KERNEL
+    fwd = _kernel(launches_per_path={**per_path, "predictor": 12, "batch_predictor": 12,
+                                     "serve": 12})
+    no_job = _kernel(name="flash_bwd", launches_per_path={**per_path, "cli_job": 0})
+    assert chip_smoke.check_kernels_line({"kernels": [fwd, no_job]}, paths) == [
+        "flash_bwd: no launch on cli_job"]

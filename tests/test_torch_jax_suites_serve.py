@@ -80,17 +80,11 @@ TEST_IDS = [
     "test_serve_pernode.py::test_proxy_crash_recovers",
 ]
 
-_CLUSTER_UTILS = ("imports ray_tpu_torch.cluster_utils (virtual multi-node clusters), "
-                  "not ported yet: ROADMAP.md Queue 1 items 2 and 8")
 EXCLUDED = {
-    "test_serve_ingress.py::test_dashboard_api_serve": (
-        "imports ray_tpu_torch.dashboard.head, not ported yet: ROADMAP.md Queue 1 item 2"),
-    "test_serve_ingress.py::test_proxy_failover_under_load": _CLUSTER_UTILS,
-    "test_serve_ingress.py::test_proxy_wire_drain_and_directory": _CLUSTER_UTILS,
-    "test_serve_pernode.py::test_per_node_proxies": _CLUSTER_UTILS,
     "test_serve_pernode.py::test_proxy_crash_recovers": (
-        _CLUSTER_UTILS + "; and it needs a fixed port to survive a proxy restart (a port-0 "
-        "proxy has no restart by design), which would bind 8000 here"),
+        "asks the proxy's first port again after killing it: under PORT_PLUGIN the "
+        "restarted proxy binds a new ephemeral port, and only a fixed port (8000, "
+        "which no case may bind here) survives the restart"),
 }
 RUN = [t for t in TEST_IDS if t not in EXCLUDED]
 

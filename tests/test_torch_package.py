@@ -334,37 +334,87 @@ def test_collective_parallel_and_model_exports_match_the_jax_packages():
                        tparallel if name in tparallel.__all__ else tmodels, name), name
 
 
-def test_item_2_entry_points_raise_not_implemented(tmp_path):
-    # The three entry points that reach a module listed in NOT_YET_PORTED
-    # raise NotImplementedError naming its item, not an ImportError. (.bind
-    # on a remote function or actor class builds a DAG node now:
-    # tests/test_torch_dag.py.)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 2"):
-        ray_tpu_torch.timeline()
-    # The head: with --dashboard-port, and when it recovers a journal that
-    # holds a job still running.
+def _head(*extra, env=None):
+    """A head process of the port's; returns it and its ready line's JSON."""
+    import json
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch._private.head", "--num-cpus", "1", *extra],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    assert line.startswith("RAY_TPU_TORCH_HEAD_READY "), line + proc.stderr.read()[-2000:]
+    return proc, json.loads(line.split(" ", 1)[1])
+
+
+def test_item_2_entry_points_work(tmp_path):
+    # The three entry points that raised NotImplementedError naming item 2
+    # before the state API, the dashboard and job submission were ported.
+    import json
+    import urllib.request
+
     from ray_tpu_torch._private.gcs import GCS
 
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        @ray_tpu_torch.remote
+        def one():
+            return 1
+
+        assert ray_tpu_torch.get(one.remote()) == 1
+        events = ray_tpu_torch.timeline(str(tmp_path / "tl.json"))
+        assert any(e["cat"] == "task" and e["name"] == "one" for e in events), events
+        with open(tmp_path / "tl.json") as f:
+            assert len(json.load(f)) == len(events)
+    finally:
+        ray_tpu_torch.shutdown()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # The head's dashboard: --dashboard-port 0 binds a free port and serves
+    # the cluster's rollup.
+    proc, info = _head("--dashboard-port", "0", env=env)
+    try:
+        url = f"http://127.0.0.1:{info['dashboard_port']}/api/cluster"
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            cluster = json.loads(resp.read())
+        assert cluster["nodes"] == 1 and cluster["cluster_resources"]["CPU"] == 1.0
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=30) == 0
+    assert not os.path.exists(info["session_dir"])
+    # A journal that holds a job still running: the head recovers it as
+    # FAILED, with the reason, and saves both on the way out.
     journal = str(tmp_path / "gcs.journal")
     gcs = GCS()
     gcs.kv_put(b"job::j1::status", b"RUNNING")
+    gcs.kv_put(b"job::j2::status", b"SUCCEEDED")
     gcs.save_to(journal)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    for extra in (["--dashboard-port", "0"], ["--persist", journal]):
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "ray_tpu_torch._private.head", "--num-cpus", "1", *extra],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        try:
-            _, err = proc.communicate(timeout=60)
-        finally:
-            proc.kill()
-            import glob
-            import shutil
+    proc, info = _head("--persist", journal, env=env)
+    proc.terminate()
+    assert proc.wait(timeout=30) == 0
+    back = GCS()
+    assert back.load_from(journal)
+    assert back.kv_get(b"job::j1::status") == b"FAILED"
+    assert b"in flight when the head restarted" in back.kv_get(b"job::j1::message")
+    assert back.kv_get(b"job::j2::status") == b"SUCCEEDED"
+    assert back.kv_get(b"job::j2::message") is None
 
-            for d in glob.glob(f"/dev/shm/ray_tpu_torch_head_{proc.pid}_*"):
-                shutil.rmtree(d, ignore_errors=True)
-        assert proc.returncode != 0
-        assert "NotImplementedError" in err and "ROADMAP.md Queue 1 item 2" in err, err[-2000:]
+
+def test_operator_modules_import_no_torch():
+    # The CLI, the state API, the dashboard and job submission are host code:
+    # `python -m ray_tpu_torch status` pays one process start, not a CUDA
+    # library load.
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.__main__, ray_tpu_torch.scripts.cli, ray_tpu_torch.dashboard\n"
+        "import ray_tpu_torch.util.state, ray_tpu_torch.job_submission\n"
+        "import ray_tpu_torch.cluster_utils, ray_tpu_torch._private.launch\n"
+        "import ray_tpu_torch._private.critical_path\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
 
 
 def test_detect_num_gpus_reads_visible_devices(monkeypatch):
@@ -378,12 +428,8 @@ def test_detect_num_gpus_reads_visible_devices(monkeypatch):
 # Modules the port's code imports (at module or function level) that the port
 # does not have yet, each with the ROADMAP.md item that brings it. A slice that
 # ports one of them must take it out of this set: the walk below must find
-# exactly these unresolved.
-NOT_YET_PORTED = {
-    "ray_tpu_torch.dashboard",  # the head's REST dashboard: Queue 1 item 2
-    "ray_tpu_torch.job_submission.client",  # job submission: Queue 1 item 2
-    "ray_tpu_torch.util.state",  # state API and timeline(): Queue 1 item 2
-}
+# exactly these unresolved. Empty since the operator surface was ported.
+NOT_YET_PORTED = set()
 
 
 def _module_exists(name):

@@ -370,9 +370,18 @@ def _make_gpu_share_trainable(log_dir):
         import os
         import time
 
+        from ray_tpu_torch._private.worker import global_worker
         from ray_tpu_torch.air import session
 
         t0 = time.time()
+        # Tune launches trial actors one after the other, and on a loaded
+        # machine a trial can finish before the next starts: the first two
+        # wait for each other, so the test sees whether two run at once.
+        kv = global_worker.context.kv
+        kv("put", f"gpu_share_up/{os.getpid()}".encode(), b"1")
+        deadline = time.time() + 60
+        while len(kv("keys", b"gpu_share_up/")) < 2 and time.time() < deadline:
+            time.sleep(0.05)
         time.sleep(1.0)
         with open(os.path.join(log_dir, f"{config['i']}.json"), "w") as f:
             import json
@@ -472,6 +481,21 @@ def _make_pbt_trainable():
             record = {"score": float(w.sum()), "step": i, "restored": restored,
                       "probe_device": str(config["probe"].device)}
             restored = None
+            if i == 2 and ckpt is None and config["lr"] == 0.001:
+                # The slow trial's first boundary report waits until the
+                # other trial's checkpoint is persisted, so PBT exploits it
+                # whatever the order the two trials' steps reach the driver
+                # in (as chip_smoke.wait_for_a_peer_checkpoint does).
+                import glob
+                import os
+                import time
+
+                own = session.get_trial_dir()
+                peers = os.path.join(os.path.dirname(own), "*", "checkpoint_*")
+                deadline = time.time() + 60
+                while time.time() < deadline and not [
+                        p for p in glob.glob(peers) if not p.startswith(own + os.sep)]:
+                    time.sleep(0.05)
             if i % 2 == 0:
                 session.report(record, checkpoint=Checkpoint.from_dict(
                     {"w": w, "step": i, "trial_id": session.get_trial_id()}))

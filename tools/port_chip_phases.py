@@ -23,9 +23,12 @@ from seed 0, on a runtime of their own, then its shutdown check) or ``serve``
 a handle, then a multiplexed replica, on a runtime of its own, then its
 shutdown check) or ``tune`` (a Trainer sweep of two 0.5-GPU trials of GPT-2
 small from seed 0, then PBT on two 0.5-GPU function trials with an exploit,
-on a runtime of its own, then its shutdown check). The kernels are built
-first, as ``chip_smoke.py``'s build phase does, so that no phase's first
-call waits on ``nvcc``. The phases run in this process, after the flags
+on a runtime of its own, then its shutdown check) or ``cli_job`` (a head
+started with ``python -m ray_tpu_torch start --head --num-gpus 1``, a
+submitted job that trains GPT-2 small from seed 0 on one GPU worker, the
+cluster's state through the CLI and the dashboard, then ``stop``). The
+kernels are built first, as ``chip_smoke.py``'s build phase does, so that no
+phase's first call waits on ``nvcc``. The phases run in this process, after the flags
 ``chip_smoke.py`` sets (no TF32); each prints its JSON line, and the card's
 name and power limit come first. Run one checkout per process: both trees
 name their package ``ray_tpu_torch``. For an A/B, alternate them:
@@ -44,7 +47,7 @@ PHASES = {"resnet50": "phase_resnet50", "rl_learner_check": "phase_rl_learner_ch
           "rl": "run_rl_phases", "mesh": "run_mesh_phases", "pipe_ctx": "run_pipe_ctx_phases",
           "mesh_rest": "run_mesh_rest_phases", "predictor": "phase_predictor",
           "rl_multi_agent": "run_rl_multi_agent", "data": "run_data_phases",
-          "serve": "run_serve_phase", "tune": "run_tune_phase"}
+          "serve": "run_serve_phase", "tune": "run_tune_phase", "cli_job": "phase_cli_job"}
 
 
 def main(argv=None):
