@@ -89,25 +89,38 @@ exits non-zero and prints no result.
    seconds, the checkpoints' MB and persist seconds, trial actor starts,
    each trial's tokens/s, wall time and peak memory printed;
    ``tune_shutdown``.
-   Then the operator's path, ``cli_job``: ``python -m ray_tpu_torch start
-   --head --num-gpus 1 --dashboard-port 0`` (HOME a temporary directory),
-   ``job submit`` of a script that joins the cluster through
-   ``RAY_TPU_TORCH_ADDRESS`` and trains the main path's model from seed 0 at
-   B 8 x S 1024 for 4 steps through ``TorchTrainer`` on one GPU worker; while
-   the worker waits at step 1 for a KV flag, ``list actors`` shows it holding
-   ``GPU`` 1.0 with device id "0" and the job's supervisor holding no GPU;
-   after the job, ``job status`` SUCCEEDED, ``job logs`` with the script's
-   line (the entrypoint saw ``CUDA_VISIBLE_DEVICES`` "", the worker "0" and
-   ``cuda:0``, 12 + 12 launches a step, the first loss within 1e-3 of plain
-   attention on the same batch), ``status`` with ``GPU`` 1.0 free, ``train
-   --json`` (the goodput ledger: 4 steps, buckets summing to its wall time),
-   ``timeline --output`` (the worker's task intervals); ``/api/cluster``,
-   ``/api/jobs``, ``/api/train`` and ``/metrics`` agreeing with the CLI, no
-   aiohttp in the head; then ``stop``: no process of the head's tree left,
-   none on the card, its session directory gone. The read-only commands run
-   as ``scripts.cli.main`` in this process; the seconds from head start to
-   ready, from submit to RUNNING, to the first step and to SUCCEEDED, the
-   warm tokens/s and the goodput fraction printed.
+   Then the operator's path, ``cli_job``, on an autoscaled cluster: ``python
+   -m ray_tpu_torch start --head --num-gpus 0 --dashboard-port 0`` (HOME a
+   temporary directory), an autoscaler ``Monitor`` in this process with one
+   node type (``CPU`` 2, ``GPU`` 1, at most one) and a
+   ``LocalDaemonProvider``, and ``job submit`` of a script that joins the
+   cluster through ``RAY_TPU_TORCH_ADDRESS`` and trains the main path's
+   model from seed 0 at B 8 x S 1024 for 4 steps through ``TorchTrainer`` on
+   one GPU worker of a ``GPU_SLICE`` gang: the gang waits, the Monitor
+   launches exactly one node daemon, and the worker runs there. While it
+   waits at step 1 for a KV flag, ``list actors`` shows it holding ``GPU``
+   1.0 with the device id this process's CUDA_VISIBLE_DEVICES names first
+   and the job's supervisor holding no GPU, and ``list nodes`` shows the
+   node's ``autoscaler_node_type`` and ``gpu_nvlink_domain`` with the worker
+   on it; after the job, ``job status`` SUCCEEDED, ``job logs`` with the
+   script's line (the entrypoint saw ``CUDA_VISIBLE_DEVICES`` "", the worker
+   that id and ``cuda:0``, 12 + 12 launches a step, the first loss within
+   1e-4 of plain attention on the same batch); the node terminated after 3 s
+   idle, its daemon and worker gone, the card's process count back to its
+   count before the head, the cluster's ``GPU`` 0 -> 1 -> 0, one
+   ``autoscaler_scale_up`` and one ``autoscaler_scale_down`` event;
+   ``status``, ``train --json`` (the goodput ledger: 4 steps, buckets
+   summing to its wall time), ``timeline --output`` (the worker's task
+   intervals); ``/api/cluster``, ``/api/jobs``, ``/api/train`` and
+   ``/metrics`` agreeing with the CLI, no aiohttp in the head; then
+   ``stop``: no process of the head's tree left, none on the card, its
+   session directory gone. The read-only commands run as
+   ``scripts.cli.main`` in this process; the seconds from head start to
+   ready, from submit to the gang's demand, from the demand to the launch
+   decision, to the node registered and to the first step, from submit to
+   SUCCEEDED and from the job's end to the node's termination, the warm
+   tokens/s, the goodput fraction and ``nvidia-smi -q``'s Fabric section
+   printed.
 6b. collectives and the mesh: ``collective_nccl``, every op of
    ``ray_tpu_torch.util.collective`` on a world-1 NCCL group over CUDA
    tensors, f32 and bf16, each result checked and on ``cuda:0``; then
@@ -3418,18 +3431,28 @@ def run_tune_phase(smi, cfg=None, device=None, **sizes):
 
 
 # ---------------------------------------------------------------------------- the CLI
-# The cli_job phase: the operator's path through the port's CLI processes. A
-# head (``python -m ray_tpu_torch start --head --num-gpus 1 --dashboard-port
-# 0``, HOME a temporary directory, where the CLI keeps its state file), a job
-# submitted to it (``job submit``) whose entrypoint trains the main path's
-# model from seed 0 at B CLI_JOB_B x S 1024 for CLI_JOB_STEPS steps through
-# TorchTrainer on one GPU worker, the cluster's state read through the CLI
-# while the worker waits at a step for a KV flag and after the job, the same
-# state through the dashboard, then ``stop``. The first loss is held to plain
-# attention on the same batch with the main path's limit (LOSS_TOL), as the
-# tune phase holds its own.
+# The cli_job phase: the operator's path through the port's CLI processes, on
+# the deployment users run: a head with no GPU whose GPU workers join through
+# the autoscaler. A head (``python -m ray_tpu_torch start --head --num-gpus 0
+# --dashboard-port 0``, HOME a temporary directory, where the CLI keeps its
+# state file); an autoscaler ``Monitor`` in this process, over its client
+# connection, with one node type of CLI_JOB_NODE (``CPU`` 2, ``GPU`` 1, at most
+# one) and a ``LocalDaemonProvider``, whose daemons inherit this process's
+# environment and so its CUDA_VISIBLE_DEVICES (a job's entrypoint sees none);
+# a job submitted to the head (``job submit``) whose entrypoint trains the
+# main path's model from seed 0 at B CLI_JOB_B x S 1024 for CLI_JOB_STEPS
+# steps through TorchTrainer on one GPU worker of a ``GPU_SLICE`` gang, which
+# waits until the Monitor has launched the node; the cluster's state read
+# through the CLI while the worker waits at a step for a KV flag; the node
+# terminated after CLI_JOB_IDLE_TIMEOUT_S idle, its processes and their card
+# context gone; the state after it through the CLI and the dashboard; then
+# ``stop``. The first loss is held to plain attention on the same batch with
+# the trainer's limit (TRAINER_FIRST_LOSS_TOL), as the trainer phase holds its
+# own.
 CLI_JOB_B, CLI_JOB_STEPS, CLI_JOB_WAIT_STEP = 8, 4, 1
 CLI_JOB_FLAG = "chip_smoke_cli_job"
+CLI_JOB_NODE = ("h100", {"CPU": 2, "GPU": 1})
+CLI_JOB_IDLE_TIMEOUT_S, CLI_JOB_MONITOR_INTERVAL_S = 3.0, 0.5
 
 
 def cli_job_train_loop(config):
@@ -3473,7 +3496,8 @@ def cli_job_train_loop(config):
 def cli_job_entrypoint(config_path):
     """The cli_job phase's job entrypoint, run by the job's supervisor: join
     the cluster through ``RAY_TPU_TORCH_ADDRESS``, train through
-    ``TorchTrainer`` with one GPU worker, and print one ``CLI_JOB {...}``
+    ``TorchTrainer`` with one GPU worker in a ``GPU_SLICE`` gang (placed once
+    the autoscaler has launched a GPU node), and print one ``CLI_JOB {...}``
     line (the job's logs) with what the entrypoint saw and what the worker
     reported."""
     import pickle
@@ -3491,7 +3515,8 @@ def cli_job_entrypoint(config_path):
     on_cpu = config["device"] == "cpu"
     trainer = rt_torch.TorchTrainer(
         cli_job_train_loop, train_loop_config=config,
-        scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                     placement_strategy="GPU_SLICE"),
         backend_config=rt_torch.TorchConfig(device="cpu") if on_cpu else None,
         run_config=RunConfig(name="chip_smoke_cli_job", storage_path=config["results"]))
     result = trainer.fit()
@@ -3553,12 +3578,65 @@ def package_in_process(pid, name):
             "mapped_in_process": mapped}
 
 
+def timed_daemon_provider(address, authkey_hex):
+    """A ``LocalDaemonProvider`` that stamps each node's launch decision,
+    registration, termination call and end (``time.time()``), and keeps each
+    daemon's process tree while it lives."""
+    from ray_tpu_torch.autoscaler import LocalDaemonProvider
+
+    class TimedDaemonProvider(LocalDaemonProvider):
+        def __init__(self):
+            super().__init__(address, authkey_hex)
+            self.stamps, self.trees = [], {}
+
+        def create_node(self, node_type, node_config):
+            t0 = time.time()
+            nid = super().create_node(node_type, node_config)
+            self.stamps.append({"node_id": nid, "type": node_type, "decision": t0,
+                                "registered": time.time(), "pid": self.pid(nid)})
+            return nid
+
+        def terminate_node(self, nid):
+            (st,) = [st for st in self.stamps if st["node_id"] == nid]
+            st["terminate"] = time.time()
+            self.trees[nid] = sorted(process_tree(st["pid"]))
+            st["logs_at_termination"] = {k: v[-2000:] for k, v in self.logs(nid).items()}
+            super().terminate_node(nid)
+            st["terminated"] = time.time()
+
+    return TimedDaemonProvider()
+
+
+def card_fabric():
+    """What ``nvidia-smi -q`` reports under "Fabric" for the card (NVLink
+    fabric state; for the record only); None without ``nvidia-smi``."""
+    try:
+        out = subprocess.run(["nvidia-smi", "-q", "-i", "0"], capture_output=True, text=True,
+                             timeout=60).stdout
+    except (FileNotFoundError, subprocess.TimeoutExpired):
+        return None
+    lines, inside = [], None
+    for ln in out.splitlines():
+        depth = len(ln) - len(ln.lstrip())
+        if ln.strip() == "Fabric":
+            inside = depth
+            continue
+        if inside is not None:
+            if ln.strip() and depth <= inside:
+                break
+            if ln.strip():
+                lines.append(ln.strip())
+    return lines
+
+
 def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_JOB_STEPS,
                   timeout_s=600.0):
     """The operator's path, from head start to ``stop``, through the port's
-    CLI processes (constants above); ``start``, ``job submit`` and ``stop``
-    run as processes, the read-only commands as ``scripts.cli.main`` in this
-    process over one client connection. Returns the worker's launches."""
+    CLI processes and an autoscaled GPU node (constants above); ``start``,
+    ``job submit`` and ``stop`` run as processes, the read-only commands as
+    ``scripts.cli.main`` in this process over one client connection, which
+    the Monitor reads the cluster's demand over too. Returns the worker's
+    launches."""
     import io
     import pickle
     import shlex
@@ -3567,7 +3645,8 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
     import urllib.request
 
     import ray_tpu_torch
-    from ray_tpu_torch._private.accelerators.gpu import resolve_device
+    from ray_tpu_torch._private.accelerators.gpu import resolve_device, visible_gpu_ids
+    from ray_tpu_torch.autoscaler import AutoscalerConfig, Monitor, NodeTypeConfig
     from ray_tpu_torch.models import GPTConfig, gpt
     from ray_tpu_torch.scripts import cli
 
@@ -3581,8 +3660,13 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
     t_start = time.perf_counter()
     # nvidia-smi may list a container's processes under another pid (all as
     # 1 on the card's machine), so the processes on the card are counted
-    # too: after stop, no more than before the head started.
+    # too: after the node's termination and after stop, no more than before
+    # the head started.
     cuda_before = cuda_pids()
+    # The device id an autoscaled daemon of this process's gives its GPU
+    # actor: what this process's CUDA_VISIBLE_DEVICES names first.
+    (expected_id,) = visible_gpu_ids(1)
+    node_type, node_resources = CLI_JOB_NODE
 
     def run(*args):
         t0 = time.time()
@@ -3592,13 +3676,13 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
                                    f"{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
         return p.stdout, time.time() - t0
 
-    # 1. The head.
-    out, head_start_s = run("start", "--head", "--num-gpus", "1", "--dashboard-port", "0")
+    # 1. The head, with no GPU.
+    out, head_start_s = run("start", "--head", "--num-gpus", "0", "--dashboard-port", "0")
     with open(os.path.join(home, ".ray_tpu_torch", "cli_state.json")) as f:
         head = json.load(f)["head"]
     saved_key = os.environ.get("RAY_TPU_TORCH_AUTHKEY_HEX")
     os.environ["RAY_TPU_TORCH_AUTHKEY_HEX"] = head["authkey_hex"]
-    connected = False
+    connected, monitor, provider, demand = False, None, None, {}
     try:
         ray_tpu_torch.init(address=head["address"])
         connected = True
@@ -3618,7 +3702,24 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
             return buf.getvalue()
 
         status0 = json.loads(read("status"))
-        # 2. The job.
+        # 2. The autoscaler, in this process.
+        provider = timed_daemon_provider(head["address"], head["authkey_hex"])
+        monitor = Monitor(AutoscalerConfig(
+            node_types={node_type: NodeTypeConfig(resources=dict(node_resources),
+                                                  max_workers=1)},
+            idle_timeout_s=CLI_JOB_IDLE_TIMEOUT_S), provider,
+            interval_s=CLI_JOB_MONITOR_INTERVAL_S)
+        update = monitor.autoscaler.update
+
+        def timed_update(state):
+            # The Monitor's first snapshot that holds the gang's bundles.
+            if state["pending_bundles"] and "seen" not in demand:
+                demand.update(seen=time.time(), bundles=state["pending_bundles"])
+            return update(state)
+
+        monitor.autoscaler.update = timed_update
+        monitor.start()
+        # 3. The job.
         results = os.path.join(home, "results")
         config_path = os.path.join(home, "job_config.pkl")
         with open(config_path, "wb") as f:
@@ -3634,26 +3735,35 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
         out, submit_s = run("job", "submit", "--entrypoint",
                             f"{shlex.quote(sys.executable)} {shlex.quote(script)}")
         job_id = out.split()[0]
-        # 3. The state while the worker waits at its step.
+        # 4. The state while the worker waits at its step.
         t_running = None
         deadline = time.time() + timeout_s
+        ctx = ray_tpu_torch._private.worker.global_worker.context
         while kv("get", f"{CLI_JOB_FLAG}/at_step".encode()) is None:
             st = read("job", "status", job_id).strip()
             if t_running is None and st != "PENDING":
                 t_running = time.time()
+            # The gang's demand, as this loop first sees it (every ~0.05 s;
+            # the Monitor looks every CLI_JOB_MONITOR_INTERVAL_S).
+            if "at" not in demand and ctx.autoscaler_state()["pending_bundles"]:
+                demand["at"] = time.time()
             require(st in ("PENDING", "RUNNING") and time.time() < deadline,
                     f"cli_job: job {job_id} {st} before its worker reached step "
-                    f"{CLI_JOB_WAIT_STEP}:\n{read('job', 'logs', job_id)[-3000:]}")
+                    f"{CLI_JOB_WAIT_STEP}:\n{read('job', 'logs', job_id)[-3000:]}\n"
+                    f"autoscaler: demand {demand}, nodes {provider.stamps}, a failed "
+                    f"node's logs {provider.failed_logs}")
             time.sleep(0.05)
         t_at_step = time.time()
         t_running = t_running or t_at_step
+        node = provider.stamps[0]  # the count is checked with the line printed
         during = json.loads(read("list", "actors"))
         status_during = json.loads(read("status"))
         nodes_during = json.loads(read("list", "nodes"))
         tree_during = process_tree(head["pid"])
+        daemon_tree_during = process_tree(node["pid"])
         cuda_during = cuda_pids()
         kv("put", f"{CLI_JOB_FLAG}/go".encode(), b"1")
-        # 4. The state after the job.
+        # 5. The job's end, then the idle node's termination.
         while True:
             st = read("job", "status", job_id).strip()
             if st in ("SUCCEEDED", "FAILED", "STOPPED") or time.time() > deadline:
@@ -3664,17 +3774,35 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
         require(st == "SUCCEEDED", f"cli_job: job {job_id} {st}:\n{logs[-4000:]}")
         job_out = json.loads(next(ln for ln in logs.splitlines()
                                   if ln.startswith("CLI_JOB "))[len("CLI_JOB "):])
-        while json.loads(read("status"))["available_resources"].get("GPU") != 1.0 and \
-                time.time() < deadline:
+        gpu_free_after_job = None
+        while "terminated" not in node and time.time() < deadline:
+            gpu = json.loads(read("status"))["available_resources"].get("GPU")
+            if gpu_free_after_job is None and gpu == 1.0:
+                gpu_free_after_job = gpu
             time.sleep(0.1)
+        require("terminated" in node,
+                f"cli_job: the autoscaled node was not terminated within {timeout_s} s of the "
+                f"job's end: {node}; its logs: {provider.logs(node['node_id'])}")
+        t_gone = time.time()
+        while any(pid_alive(p) for p in daemon_tree_during) and time.time() < t_gone + 30:
+            time.sleep(0.1)
+        daemon_tree_alive = sorted(p for p in daemon_tree_during if pid_alive(p))
+        # A killed CUDA process takes a moment to leave the card's list.
+        while len(cuda_pids() or ()) > len(cuda_before or ()) and time.time() < t_gone + 30:
+            time.sleep(0.2)
+        cuda_after_node = cuda_pids()
+        monitor.stop()
+        events = {kind: json.loads(read("events", "--kind", kind, "--json"))
+                  for kind in ("autoscaler_scale_up", "autoscaler_scale_down")}
         status_after = json.loads(read("status"))
+        nodes_after = json.loads(read("list", "nodes"))
         train = json.loads(read("train", "--json"))
         jobs = json.loads(read("jobs", "--json"))
         timeline_path = os.path.join(home, "timeline.json")
         read("timeline", "--output", timeline_path)
         with open(timeline_path) as f:
             timeline = json.load(f)
-        # 5. The same state through the dashboard.
+        # 6. The same state through the dashboard.
         base = f"http://127.0.0.1:{head['dashboard_port']}"
 
         def http(path):
@@ -3686,13 +3814,19 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
         head_aiohttp = package_in_process(head["pid"], "aiohttp")  # while the head lives
         tree_after = process_tree(head["pid"])
     finally:
+        if monitor is not None:
+            monitor.stop()
+        for nid in list(provider.non_terminated_nodes()) if provider is not None else ():
+            print(f"cli_job: node {nid} still up; its logs: {provider.logs(nid)}",
+                  file=sys.stderr, flush=True)
+            provider.terminate_node(nid)
         if connected:
             ray_tpu_torch.shutdown()
         if saved_key is None:
             os.environ.pop("RAY_TPU_TORCH_AUTHKEY_HEX", None)
         else:
             os.environ["RAY_TPU_TORCH_AUTHKEY_HEX"] = saved_key
-        # 6. Stop the head.
+        # 7. Stop the head.
         t0 = time.time()
         stop_out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", "stop"], cwd=root,
                                   env=env, capture_output=True, text=True, timeout=timeout_s)
@@ -3718,14 +3852,36 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
     task_events = [e for e in timeline if e.get("cat") == "task"]
     worker_tasks = [e for e in task_events if e["name"].startswith("RayTrainWorker.")]
     launches = {k: sum(r["launches"][k] for r in history) for k in ("flash_fwd", "flash_bwd")}
+    scaled = [n for n in nodes_during if n["node_id"] == node["node_id"]]
+    # The demand: the gang's bundles as the phase's loop first saw them, or
+    # as the Monitor did where the loop missed them.
+    t_demand = demand.get("at", demand["seen"])
     line = {
         "phase": "cli_job", "n_layer": cfg.n_layer, "d_model": cfg.d_model,
         "dtype": str(cfg.dtype).replace("torch.", ""), "batch": batch, "seq": seq,
         "steps": steps, "job_id": job_id,
         "head": {"pid": head["pid"], "start_s": head_start_s, "dashboard_port":
                  head["dashboard_port"], "cluster_resources": status0["cluster_resources"]},
+        "autoscaler": {
+            "node_type": {node_type: node_resources}, "idle_timeout_s": CLI_JOB_IDLE_TIMEOUT_S,
+            "interval_s": CLI_JOB_MONITOR_INTERVAL_S, "launched": len(provider.stamps),
+            "demand": demand.get("bundles"),
+            "node": {k: node[k] for k in ("node_id", "type", "pid")},
+            "node_labels": scaled[0]["labels"] if scaled else None,
+            "node_worker_pids": [w["pid"] for n in scaled for w in n["workers"]],
+            "daemon_tree": sorted(daemon_tree_during),
+            "daemon_tree_alive_after": daemon_tree_alive,
+            "events": {k: [{"message": e["message"], "data": e.get("data")} for e in v]
+                       for k, v in events.items()},
+            "nodes_after": [n["labels"] for n in nodes_after],
+            "fabric": card_fabric()},
         "seconds": {"head_start_to_ready": head_start_s, "submit_process": submit_s,
                     "submit_to_running": t_running - t_submit,
+                    "submit_to_demand": t_demand - t_submit,
+                    "demand_to_monitor_snapshot": demand["seen"] - t_demand,
+                    "demand_to_launch_decision": node["decision"] - t_demand,
+                    "demand_to_node_registered": node["registered"] - t_demand,
+                    "demand_to_first_step": history[0]["t1"] - t_demand,
                     "submit_to_first_step": history[0]["t1"] - t_submit,
                     "submit_to_worker_process": stamps["process_start"] - t_submit,
                     "worker_process_to_workload_built":
@@ -3733,10 +3889,12 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
                     "first_step": history[0]["t1"] - history[0]["t0"],
                     "worker_waited_for_the_driver": stamps.get("waited_for_the_driver_s"),
                     "at_step_to_succeeded": t_done - t_at_step,
-                    "submit_to_succeeded": t_done - t_submit, "stop_process": stop_s,
-                    "stop_to_tree_gone": stop_wait_s,
+                    "submit_to_succeeded": t_done - t_submit,
+                    "job_end_to_termination": node["terminate"] - t_done,
+                    "job_end_to_terminated": node["terminated"] - t_done,
+                    "stop_process": stop_s, "stop_to_tree_gone": stop_wait_s,
                     "job_entrypoint_init": job_out["init_s"], "job_fit": job_out["fit_s"]},
-        "entrypoint_visible": job_out["entrypoint_visible"],
+        "entrypoint_visible": job_out["entrypoint_visible"], "expected_worker_id": expected_id,
         "worker": {"pid": history[0]["pid"], "visible": sorted({r["visible"] for r in history}),
                    "device": sorted({r["device"] for r in history}), "losses": losses,
                    "launches_per_step": [r["launches"] for r in history],
@@ -3745,13 +3903,17 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
                    "peak_memory_gib": max(r["peak_memory_gib"] for r in history),
                    "gpu_free_in_worker": sorted({r["gpu_free"] for r in history})},
         "first_step_reference": ref_loss, "first_loss_abs_err": abs(losses[0] - ref_loss),
-        "tol": LOSS_TOL,
+        "tol": TRAINER_FIRST_LOSS_TOL,
         "list_actors_during": {"worker": worker, "supervisor": sup},
+        "gpu_before": {"available": status0["available_resources"].get("GPU", 0.0),
+                       "total": status0["cluster_resources"].get("GPU", 0.0)},
         "gpu_during": {"available": status_during["available_resources"].get("GPU"),
+                       "total": status_during["cluster_resources"].get("GPU"),
                        "node_available": [n["available"].get("GPU") for n in nodes_during]},
+        "gpu_free_after_job": gpu_free_after_job,
         "job_status": st, "logs_hold_the_json_line": True,
-        "gpu_after": {"available": status_after["available_resources"].get("GPU"),
-                      "total": status_after["cluster_resources"].get("GPU")},
+        "gpu_after": {"available": status_after["available_resources"].get("GPU", 0.0),
+                      "total": status_after["cluster_resources"].get("GPU", 0.0)},
         "goodput": {k: gang[k] for k in ("steps", "wall_s", "buckets", "coverage",
                                         "goodput_frac")} if gang else None,
         "goodput_bucket_sum_s": bucket_sum,
@@ -3770,34 +3932,52 @@ def phase_cli_job(smi, cfg=None, device=None, batch=CLI_JOB_B, seq=S, steps=CLI_
         "head_aiohttp": head_aiohttp,
         "stop": {"stdout": stop_out.stdout.strip(), "rc": stop_out.returncode,
                  "tree": tree, "alive_after": alive, "cuda_pids_before": cuda_before,
-                 "cuda_pids_during": cuda_during, "cuda_pids_after": on_card,
+                 "cuda_pids_during": cuda_during, "cuda_pids_after_node": cuda_after_node,
+                 "cuda_pids_after": on_card,
                  "tree_on_card_after": sorted(set(tree) & set(on_card or ())),
                  "session_dir_left": session_left},
         "launches": launches, "wall_s": time.perf_counter() - t_start, "card": smi}
     emit(line)
 
     per_step = {"flash_fwd": cfg.n_layer, "flash_bwd": cfg.n_layer}
-    require(status0["cluster_resources"].get("GPU") == 1.0,
+    require(line["gpu_before"] == {"available": 0.0, "total": 0.0},
             f"cli_job: the head's cluster {status0['cluster_resources']}")
+    require(line["autoscaler"]["launched"] == 1 and node["type"] == node_type,
+            f"cli_job: the autoscaler launched {provider.stamps}")
+    labels = line["autoscaler"]["node_labels"] or {}
+    require(labels.get("autoscaler_node_type") == node_type and labels.get("gpu_nvlink_domain"),
+            f"cli_job: list nodes showed the autoscaled node's labels {labels}")
     require(len(history) == steps and all(math.isfinite(x) for x in losses),
             f"cli_job: worker losses {losses}")
     require(all(r["launches"] == per_step for r in history),
             f"cli_job: launches per step {[r['launches'] for r in history]}")
-    require(line["worker"]["visible"] == ["0"], f"cli_job: worker saw {line['worker']['visible']}")
+    require(line["worker"]["visible"] == [expected_id],
+            f"cli_job: worker saw {line['worker']['visible']}, this process {expected_id!r}")
     if not on_cpu:
         require(line["worker"]["device"] == ["cuda:0"],
                 f"cli_job: worker ran on {line['worker']['device']}")
     require(job_out["entrypoint_visible"] == "",
             f"cli_job: the entrypoint saw CUDA_VISIBLE_DEVICES {job_out['entrypoint_visible']!r}")
-    require(line["first_loss_abs_err"] <= LOSS_TOL,
+    require(line["first_loss_abs_err"] <= TRAINER_FIRST_LOSS_TOL,
             f"cli_job: first loss {losses[0]} vs plain attention {ref_loss}")
     require(len(worker) == 1 and worker[0]["resources"].get("GPU") == 1.0
-            and worker[0]["gpu_ids"] == ["0"], f"cli_job: list actors showed the worker {worker}")
+            and worker[0]["gpu_ids"] == [expected_id],
+            f"cli_job: list actors showed the worker {worker}")
+    require(history[0]["pid"] in line["autoscaler"]["node_worker_pids"],
+            f"cli_job: the worker (pid {history[0]['pid']}) is not on the autoscaled node "
+            f"{line['autoscaler']['node_worker_pids']}")
     require(len(sup) == 1 and sup[0]["state"] == "ALIVE" and not sup[0]["resources"].get("GPU")
             and sup[0]["gpu_ids"] == [], f"cli_job: list actors showed the supervisor {sup}")
-    require(line["gpu_during"]["available"] == 0.0, f"cli_job: GPU during {line['gpu_during']}")
-    require(line["gpu_after"] == {"available": 1.0, "total": 1.0},
-            f"cli_job: GPU after the job {line['gpu_after']}")
+    require(line["gpu_during"]["available"] == 0.0 and line["gpu_during"]["total"] == 1.0,
+            f"cli_job: GPU during {line['gpu_during']}")
+    require(line["gpu_after"] == {"available": 0.0, "total": 0.0}
+            and node_type not in str(line["autoscaler"]["nodes_after"]),
+            f"cli_job: GPU after the node's termination {line['gpu_after']}")
+    require(not daemon_tree_alive and len(cuda_after_node or ()) <= len(cuda_before or ()),
+            f"cli_job: after the node's termination: daemon tree alive {daemon_tree_alive}, "
+            f"on the card {cuda_after_node} against {cuda_before} before the head")
+    require(len(events["autoscaler_scale_up"]) == 1 and len(events["autoscaler_scale_down"]) == 1,
+            f"cli_job: autoscaler events {events}")
     require(gang is not None and abs(bucket_sum - gang["wall_s"]) <= 1e-3 + 1e-3 * gang["wall_s"],
             f"cli_job: goodput ledger {train}")
     require(worker_tasks, f"cli_job: the timeline holds no task of the worker "

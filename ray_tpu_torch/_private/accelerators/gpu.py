@@ -12,7 +12,12 @@ from __future__ import annotations
 
 import glob
 import os
-from typing import List
+import socket
+from typing import Dict, List
+
+# The environment key that names a node's NVLink domain, where the host's
+# name does not (an NVL rack whose hosts share NVLink switches).
+NVLINK_DOMAIN_ENV = "RAY_TPU_TORCH_GPU_NVLINK_DOMAIN"
 
 
 def detect_num_gpus() -> int:
@@ -39,6 +44,23 @@ def visible_gpu_ids(n: int) -> List[str]:
     visible = [d.strip() for d in os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")]
     visible = [d for d in visible if d]
     return visible[:n] if len(visible) >= n else [str(i) for i in range(n)]
+
+
+def node_topology_labels(num_gpus: float) -> Dict[str, str]:
+    """Labels of this host's place in the GPU interconnect, attached to the
+    node at registration so that the GPU_SLICE placement policy
+    (``util/gpu_topology_policy.py``) takes a gang from one NVLink domain:
+    the counterpart of ``ray_tpu/_private/accelerators/tpu.py``'s labels of a
+    host's place in its TPU slice.
+
+    A node that holds GPUs gets ``gpu_nvlink_domain``: the value of
+    ``RAY_TPU_TORCH_GPU_NVLINK_DOMAIN`` when it is set (as the TPU labels come
+    from the TPU VM's ``TPU_*`` keys), else the host's name, since an HGX
+    host's GPUs share one NVSwitch. Empty for a node without GPUs. Reads
+    nothing from the driver or NVML."""
+    if not num_gpus or num_gpus <= 0:
+        return {}
+    return {"gpu_nvlink_domain": os.environ.get(NVLINK_DOMAIN_ENV) or socket.gethostname()}
 
 
 def default_device():

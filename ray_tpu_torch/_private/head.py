@@ -53,7 +53,11 @@ def main() -> None:
     )
     ns = parser.parse_args()
 
-    from ray_tpu_torch._private.accelerators.gpu import detect_num_gpus, visible_gpu_ids
+    from ray_tpu_torch._private.accelerators.gpu import (
+        detect_num_gpus,
+        node_topology_labels,
+        visible_gpu_ids,
+    )
     from ray_tpu_torch._private.config import Config, set_config
     from ray_tpu_torch._private.gcs import GCS
     from ray_tpu_torch._private.scheduler import Scheduler
@@ -100,7 +104,7 @@ def main() -> None:
         gcs, cfg, session_dir, tcp_port=ns.port, advertise_host=ns.host, bind_host=ns.bind_host
     )
     scheduler.start()
-    labels = {"head": "1"}  # no GPU topology labels yet (ROADMAP.md Queue 1 item 8)
+    labels = {"head": "1", **node_topology_labels(num_gpus)}
     # The node's device ids, as init() gives the in-process head's: what an
     # actor holding `GPU` finds in its CUDA_VISIBLE_DEVICES.
     scheduler.call("add_node", (resources, labels, visible_gpu_ids(int(num_gpus or 0)))).result()

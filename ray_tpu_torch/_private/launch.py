@@ -33,14 +33,20 @@ def spawn_and_wait_ready(
     *,
     env: Optional[Dict[str, str]] = None,
     timeout_s: float = 60.0,
+    stderr_path: Optional[str] = None,
 ) -> Tuple[subprocess.Popen, str]:
     """Popen `cmd`, wait (wall-clock bounded) for a stdout line starting with
     `ready_prefix`; returns (proc, payload after the prefix). Terminates the
-    child and raises on timeout or early exit."""
-    proc = subprocess.Popen(
-        cmd, env=env or _repo_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.DEVNULL, text=True,
-    )
+    child and raises on timeout or early exit. The child's stderr goes to
+    `stderr_path` when given, else nowhere."""
+    err = open(stderr_path, "ab") if stderr_path else subprocess.DEVNULL
+    try:
+        proc = subprocess.Popen(
+            cmd, env=env or _repo_env(), stdout=subprocess.PIPE, stderr=err, text=True,
+        )
+    finally:
+        if stderr_path:
+            err.close()
     lines: "queue.SimpleQueue[Optional[str]]" = queue.SimpleQueue()
 
     def pump():
@@ -97,8 +103,11 @@ def spawn_node_daemon(
     labels: Optional[Dict[str, str]] = None,
     authkey_hex: Optional[str] = None,
     timeout_s: float = 60.0,
+    log_dir: Optional[str] = None,
 ) -> Tuple[subprocess.Popen, str]:
-    """Start a node daemon joined to `head_address`; returns (proc, node_id_hex)."""
+    """Start a node daemon joined to `head_address`; returns (proc, node_id_hex).
+    With `log_dir`, its workers' logs and the daemon's own stderr
+    (`daemon.log`) go there."""
     env = _repo_env(
         {"RAY_TPU_TORCH_AUTHKEY_HEX": authkey_hex} if authkey_hex else None
     )
@@ -109,5 +118,11 @@ def spawn_node_daemon(
         "--resources", json.dumps(resources or {}),
         "--labels", json.dumps(labels or {}),
     ]
-    proc, payload = spawn_and_wait_ready(cmd, NODE_READY_PREFIX, env=env, timeout_s=timeout_s)
+    stderr_path = None
+    if log_dir:
+        os.makedirs(log_dir, exist_ok=True)
+        cmd += ["--log-dir", log_dir]
+        stderr_path = os.path.join(log_dir, "daemon.log")
+    proc, payload = spawn_and_wait_ready(cmd, NODE_READY_PREFIX, env=env, timeout_s=timeout_s,
+                                         stderr_path=stderr_path)
     return proc, payload

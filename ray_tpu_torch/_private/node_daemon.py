@@ -22,11 +22,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 from ray_tpu_torch._private import failpoints, serialization, session_monitor
 from ray_tpu_torch._private.wire import WireDecodeError
@@ -34,12 +35,16 @@ from ray_tpu_torch._private.wire import WireDecodeError
 
 class NodeDaemon:
     def __init__(self, head_host: str, head_port: int, shm_dir: str,
-                 resources: Dict[str, float], labels: Dict[str, str], log_dir: str):
+                 resources: Dict[str, float], labels: Dict[str, str], log_dir: str,
+                 gpu_ids: Optional[List[str]] = None):
         self.head_host = head_host
         self.head_port = head_port
         self.shm_dir = shm_dir
         self.resources = resources
         self.labels = labels
+        # The device ids this daemon's CUDA_VISIBLE_DEVICES names: what an
+        # actor holding `GPU` on this node finds in its own.
+        self.gpu_ids = list(gpu_ids or [])
         self.log_dir = log_dir
         self.procs: Dict[str, subprocess.Popen] = {}
         self._lock = threading.Lock()
@@ -107,6 +112,7 @@ class NodeDaemon:
                     {
                         "resources": self.resources,
                         "labels": self.labels,
+                        "gpu_ids": self.gpu_ids,
                         "shm_dir": self.shm_dir,
                         "data_address": data_address,
                         # The head prunes this process's metrics::/spans:: KV
@@ -145,6 +151,7 @@ class NodeDaemon:
     def _spawn_worker(self, info: dict):
         worker_id_hex = info["worker_id_hex"]
         env = dict(os.environ)
+        env.update(info.get("env_vars") or {})
         repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
         env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
         os.makedirs(self.log_dir, exist_ok=True)
@@ -426,17 +433,30 @@ def main() -> None:
     parser.add_argument("--log-dir", default="")
     ns = parser.parse_args()
 
+    from ray_tpu_torch._private.accelerators.gpu import node_topology_labels, visible_gpu_ids
+
     host, _, port = ns.address.rpartition(":")
-    labels = json.loads(ns.labels)  # no GPU topology labels yet (ROADMAP.md Queue 1 item 8)
+    resources = json.loads(ns.resources)
+    num_gpus = resources.get("GPU", 0)
+    labels = {**node_topology_labels(num_gpus), **json.loads(ns.labels)}
     daemon = NodeDaemon(
         head_host=host,
         head_port=int(port),
         shm_dir=ns.shm_dir,
-        resources=json.loads(ns.resources),
+        resources=resources,
         labels=labels,
         log_dir=ns.log_dir or os.path.join(ns.shm_dir, "..", "logs"),
+        gpu_ids=visible_gpu_ids(int(num_gpus)),
     )
     os.makedirs(ns.shm_dir, exist_ok=True)
+
+    def on_sigterm(signum, frame):
+        # Leave through serve()'s cleanup, which kills this node's workers: a
+        # terminated node (the autoscaler's scale-down) takes its worker
+        # processes, and the device memory they hold, with it.
+        raise SystemExit(0)
+
+    signal.signal(signal.SIGTERM, on_sigterm)
     daemon.connect()
     print(f"RAY_TPU_TORCH_NODE_READY {daemon.node_id_hex}", flush=True)
     daemon.serve()

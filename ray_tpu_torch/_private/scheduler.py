@@ -1013,6 +1013,9 @@ class Scheduler:
             shm_dir=info["shm_dir"],
             labels=dict(info.get("labels") or {}),
             data_address=info.get("data_address"),
+            # The ids the daemon's own CUDA_VISIBLE_DEVICES names (empty:
+            # 0..GPU-1, as for a virtual node).
+            gpu_load={str(i): 0.0 for i in info.get("gpu_ids") or ()},
         )
         daemon = DaemonHandle(node_id, conn)
         # Daemon's OS pid (registration info): worker/daemon metrics flush
@@ -1926,7 +1929,11 @@ class Scheduler:
         if actor_id is None:
             node.idle.append(worker_id)
         blob = base64.b64encode(pickle.dumps(args)).decode()
-        info = {"worker_id_hex": worker_id.hex(), "args_blob": blob}
+        # The worker's environment over the daemon's, as a local spawn sets
+        # it: an actor's CUDA_VISIBLE_DEVICES names its own device ids, not
+        # every device of the daemon's.
+        info = {"worker_id_hex": worker_id.hex(), "args_blob": blob,
+                "env_vars": dict(env_vars or {})}
         if runtime_env and runtime_env.get("container"):
             # The daemon wraps the worker command on ITS host (binary
             # discovery and mounts are node-local decisions).
@@ -3859,6 +3866,14 @@ class Scheduler:
         for n in self.nodes.values():
             busy = sum(1 for w in n.workers.values() if w.state in ("busy", "blocked"))
             actors = sum(1 for w in n.workers.values() if w.actor_id is not None)
+            # The idle clock starts when the node last held work: actors,
+            # busy workers or reserved resources (a placement group's
+            # bundle). Dispatch alone would date it from the last task or
+            # actor start, and a node whose long-lived actor just exited
+            # would read idle for that actor's whole life.
+            if busy or actors or any(n.available.get(k, 0.0) < v - 1e-9
+                                     for k, v in n.resources.items()):
+                n.last_active = now
             nodes.append(
                 {
                     "node_id": n.node_id.hex(),
@@ -5145,7 +5160,8 @@ class Scheduler:
 
     def _try_reserve_pg(self, pg: PGRecord) -> bool:
         """Bundle placement policies, the analogue of the reference's
-        `bundle_scheduling_policy.cc` PACK/SPREAD/STRICT_PACK/STRICT_SPREAD."""
+        `bundle_scheduling_policy.cc` PACK/SPREAD/STRICT_PACK/STRICT_SPREAD,
+        and GPU_SLICE (one NVLink domain, `_plan_gpu_slice`)."""
         nodes = [self.nodes[nid] for nid in self.node_order if self.nodes[nid].alive]
         unplaced = [b for b in pg.bundles if b.node is None]
         if not unplaced:
@@ -5187,16 +5203,35 @@ class Scheduler:
                 for b in unplaced:
                     if not any(place(b, n) for n in nodes):
                         return False
-        elif strategy == "STRICT_SPREAD":
-            used = {b.node for b in pg.bundles if b.node is not None}
-            for b in unplaced:
-                placed_ids = {p[1].node_id for p in plan}
-                cand = [
-                    n for n in nodes
-                    if n.node_id not in used and n.node_id not in placed_ids
-                ]
-                if not any(place(b, n) for n in cand):
-                    return False
+        elif strategy in ("GPU_SLICE", "STRICT_SPREAD"):
+            def place_spread() -> bool:
+                used = {b.node for b in pg.bundles if b.node is not None}
+                for b in unplaced:
+                    placed_ids = {p[1].node_id for p in plan}
+                    cand = [
+                        n for n in nodes
+                        if n.node_id not in used and n.node_id not in placed_ids
+                    ]
+                    if not any(place(b, n) for n in cand):
+                        return False
+                return True
+
+            chosen = (
+                self._plan_gpu_slice(unplaced, nodes, scratch)
+                if strategy == "GPU_SLICE"
+                else None
+            )
+            # NVLink-domain-aware: the gang's hosts come from one domain
+            # (util/gpu_topology_policy.py), so its collectives never cross
+            # the network between domains. Falls back to STRICT_SPREAD
+            # placement when no labelled domain can host the gang (clusters
+            # without labels, heterogeneous bundles, too few hosts).
+            if chosen is not None:
+                for b, n in zip(unplaced, chosen):
+                    if not place(b, n):  # cannot happen: pre-validated
+                        return False
+            elif not place_spread():
+                return False
         else:  # SPREAD (best-effort round robin)
             for i, b in enumerate(unplaced):
                 order = nodes[i % len(nodes):] + nodes[: i % len(nodes)] if nodes else []
@@ -5207,6 +5242,30 @@ class Scheduler:
             b.node = n.node_id
             b.available = dict(b.resources)
         return True
+
+    def _plan_gpu_slice(self, unplaced: List[Bundle], nodes: List[NodeState], scratch):
+        """Choose distinct hosts of one NVLink domain for the bundles; None ->
+        the caller falls back to plain spread placement.
+
+        Hosts are grouped by their `gpu_nvlink_domain` label and listed in the
+        order they joined. Every bundle is checked against every host of a
+        domain before the domain counts as feasible, so a heterogeneous gang
+        either fits every chosen host or falls back."""
+        from ray_tpu_torch.util.gpu_topology_policy import DOMAIN_LABEL, choose_domain_hosts
+
+        domains: Dict[str, List[NodeState]] = {}
+        for n in nodes:
+            domain = n.labels.get(DOMAIN_LABEL)
+            if domain and all(_fits(scratch[n.node_id], b.resources) for b in unplaced):
+                domains.setdefault(domain, []).append(n)
+        chosen = choose_domain_hosts(
+            {d: [n.node_id.binary() for n in members] for d, members in domains.items()},
+            len(unplaced),
+        )
+        if chosen is None:
+            return None
+        by_id = {n.node_id.binary(): n for n in nodes}
+        return [by_id[i] for i in chosen]
 
     # --- main scheduling pass ---
     @loop_thread_only

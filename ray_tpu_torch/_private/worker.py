@@ -1254,7 +1254,7 @@ def init(
     gcs = GCS()
     scheduler = Scheduler(gcs, cfg, session_dir)
     scheduler.start()
-    head_labels = {"head": "1"}  # no GPU topology labels yet (ROADMAP.md Queue 1 item 8)
+    head_labels = {"head": "1", **gpu_accel.node_topology_labels(num_gpus)}
     gpu_ids = gpu_accel.visible_gpu_ids(int(num_gpus or 0))
     head_node_id = scheduler.call("add_node", (node_resources, head_labels, gpu_ids)).result()
 

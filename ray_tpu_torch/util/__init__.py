@@ -1,6 +1,7 @@
 from ray_tpu_torch.util.actor_pool import ActorPool
 from ray_tpu_torch.util.placement_group import (
     PlacementGroup,
+    gpu_slice_placement_group,
     placement_group,
     remove_placement_group,
 )
@@ -14,6 +15,7 @@ __all__ = [
     "PlacementGroup",
     "placement_group",
     "remove_placement_group",
+    "gpu_slice_placement_group",
     "NodeAffinitySchedulingStrategy",
     "PlacementGroupSchedulingStrategy",
 ]

@@ -5,9 +5,11 @@ Reference: `python/ray/util/placement_group.py` (`PlacementGroup:33`,
 placement-group manager + bundle scheduling policies
 (`gcs_placement_group_manager.h:223`, `bundle_scheduling_policy.cc`).
 
-The JAX package's topology-aware `TPU_SLICE` strategy has no GPU counterpart
-yet (ROADMAP.md Queue 1 item 8): asking for it raises NotImplementedError. GPU
-gangs pack with STRICT_PACK.
+This is the gang scheduler used for GPU slices: `gpu_slice_placement_group`
+below reserves one bundle per host, and the `GPU_SLICE` strategy takes every
+host of a gang from one NVLink domain (`util/gpu_topology_policy.py`), the
+counterpart of the JAX package's ICI-aware `TPU_SLICE`. Asking for `TPU_SLICE`
+raises ValueError naming `GPU_SLICE`.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from ray_tpu_torch._private.ids import PlacementGroupID
 from ray_tpu_torch._private.scheduler import Bundle, PGRecord
 from ray_tpu_torch._private.worker import _auto_init, global_worker
 
-VALID_STRATEGIES = ("PACK", "SPREAD", "STRICT_PACK", "STRICT_SPREAD")
+VALID_STRATEGIES = ("PACK", "SPREAD", "STRICT_PACK", "STRICT_SPREAD", "GPU_SLICE")
 
 
 class PlacementGroup:
@@ -51,8 +53,9 @@ def placement_group(
     lifetime: Optional[str] = None,
 ) -> PlacementGroup:
     if strategy == "TPU_SLICE":
-        raise NotImplementedError(
-            "the TPU_SLICE strategy has no GPU counterpart yet: ROADMAP.md Queue 1 item 8"
+        raise ValueError(
+            "the TPU_SLICE strategy places TPU hosts; on GPUs use GPU_SLICE, which "
+            "takes a gang's hosts from one NVLink domain"
         )
     _auto_init()
     if strategy not in VALID_STRATEGIES:
@@ -79,3 +82,18 @@ def placement_group(
 def remove_placement_group(pg: PlacementGroup) -> None:
     global_worker.context.remove_pg(pg._id)
 
+
+
+def gpu_slice_placement_group(
+    num_hosts: int,
+    gpus_per_host: int = 8,
+    cpus_per_host: float = 1.0,
+    strategy: str = "GPU_SLICE",
+) -> PlacementGroup:
+    """Gang-reserve a GPU slice: one bundle per host, each holding that host's
+    GPUs. The GPU_SLICE strategy places the bundles on distinct hosts of one
+    NVLink domain (`util/gpu_topology_policy.py`), falling back to
+    STRICT_SPREAD placement on clusters without `gpu_nvlink_domain` labels.
+    The counterpart of the JAX package's `tpu_slice_placement_group`."""
+    bundles = [{"CPU": cpus_per_host, "GPU": float(gpus_per_host)} for _ in range(num_hosts)]
+    return placement_group(bundles, strategy=strategy)

@@ -819,15 +819,19 @@ def test_tune_phase_runs_on_the_cpu(monkeypatch, capsys):
 # ------------------------------------------------------------------ the CLI
 def test_cli_job_phase_runs_on_the_cpu(monkeypatch, capsys):
     # The cli_job phase at nano size on the CPU: a head started by the CLI
-    # with one logical GPU (no CUDA is touched), a submitted job whose Train
-    # worker holds it and counts its plain attention calls as launches, the
-    # state through the CLI and the dashboard, then stop.
+    # with no GPU, an autoscaler Monitor in this process that launches one
+    # node daemon with one logical GPU (no CUDA is touched) for the job's
+    # GPU_SLICE gang, a submitted job whose Train worker holds that GPU on
+    # the node and counts its plain attention calls as launches, the node
+    # terminated after idle, the state through the CLI and the dashboard,
+    # then stop.
     import json
 
     from ray_tpu_torch._private.accelerators import gpu
     from ray_tpu_torch.models import GPTConfig
 
     monkeypatch.setattr(gpu, "default_device", lambda: torch.device("cpu"))
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "2")
     cfg = GPTConfig.nano()
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -837,17 +841,31 @@ def test_cli_job_phase_runs_on_the_cpu(monkeypatch, capsys):
         torch.set_num_threads(threads)
     (line,) = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
     assert line["phase"] == "cli_job" and line["job_status"] == "SUCCEEDED"
-    assert line["head"]["cluster_resources"]["GPU"] == 1.0
-    assert line["entrypoint_visible"] == "" and line["worker"]["visible"] == ["0"]
+    assert "GPU" not in line["head"]["cluster_resources"]
+    # The autoscaled node's daemon hands its actor the id this process's
+    # CUDA_VISIBLE_DEVICES names.
+    assert line["expected_worker_id"] == "2"
+    assert line["entrypoint_visible"] == "" and line["worker"]["visible"] == ["2"]
     (worker,) = line["list_actors_during"]["worker"]
     (sup,) = line["list_actors_during"]["supervisor"]
-    assert worker["resources"]["GPU"] == 1.0 and worker["gpu_ids"] == ["0"]
+    assert worker["resources"]["GPU"] == 1.0 and worker["gpu_ids"] == ["2"]
     assert "GPU" not in sup["resources"] and sup["gpu_ids"] == []
-    assert line["gpu_during"]["available"] == 0.0 and line["gpu_after"]["available"] == 1.0
+    scaled = line["autoscaler"]
+    assert scaled["launched"] == 1 and scaled["demand"] == [{"CPU": 1.0, "GPU": 1.0}]
+    assert scaled["node_labels"]["autoscaler_node_type"] == "h100"
+    assert scaled["node_labels"]["gpu_nvlink_domain"]
+    assert line["worker"]["pid"] in scaled["node_worker_pids"]
+    assert scaled["daemon_tree"] and scaled["daemon_tree_alive_after"] == []
+    assert [len(v) for v in scaled["events"].values()] == [1, 1]
+    # GPU 0 -> 1 -> 0: the head's, while the worker trains, after the node.
+    assert line["gpu_before"] == {"available": 0.0, "total": 0.0}
+    assert line["gpu_during"]["available"] == 0.0 and line["gpu_during"]["total"] == 1.0
+    assert line["gpu_free_after_job"] == 1.0
+    assert line["gpu_after"] == {"available": 0.0, "total": 0.0}
     per_step = {"flash_fwd": cfg.n_layer, "flash_bwd": cfg.n_layer}
     assert line["worker"]["launches_per_step"] == [per_step] * chip_smoke.CLI_JOB_STEPS
     assert launches == {k: v * chip_smoke.CLI_JOB_STEPS for k, v in per_step.items()}
-    assert line["first_loss_abs_err"] <= chip_smoke.LOSS_TOL
+    assert line["first_loss_abs_err"] <= line["tol"] == chip_smoke.TRAINER_FIRST_LOSS_TOL
     assert line["goodput"]["steps"] == chip_smoke.CLI_JOB_STEPS
     assert abs(line["goodput_bucket_sum_s"] - line["goodput"]["wall_s"]) <= 1e-2
     assert line["timeline"]["worker_task_events"] > 0
@@ -855,8 +873,13 @@ def test_cli_job_phase_runs_on_the_cpu(monkeypatch, capsys):
                                               "train_equals_cli"))
     assert line["stop"]["alive_after"] == [] and not line["stop"]["session_dir_left"]
     assert line["head_aiohttp"]["mapped_in_process"] is False  # read while the head lived
-    assert set(line["seconds"]) >= {"head_start_to_ready", "submit_to_running",
-                                    "submit_to_first_step", "submit_to_succeeded"}
+    seconds = line["seconds"]
+    assert set(seconds) >= {"head_start_to_ready", "submit_to_running", "submit_to_first_step",
+                            "submit_to_succeeded", "demand_to_launch_decision",
+                            "demand_to_node_registered", "demand_to_first_step",
+                            "job_end_to_termination"}
+    assert 0 <= seconds["demand_to_launch_decision"] <= seconds["demand_to_node_registered"]
+    assert 0 < seconds["job_end_to_termination"] < 30
     # The kernels line: the CLI job on both kernels.
     per_path = {p: 12 for p in chip_smoke.KERNEL_PATHS}
     paths = chip_smoke.KERNEL_PATHS_BY_KERNEL

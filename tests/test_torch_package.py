@@ -310,8 +310,10 @@ def test_what_is_not_ported_raises():
 
 
 def test_collective_parallel_and_model_exports_match_the_jax_packages():
+    import ray_tpu_torch.autoscaler as tautoscaler
     import ray_tpu_torch.models as tmodels
     import ray_tpu_torch.parallel as tparallel
+    import ray_tpu_torch.util as tutil
     import ray_tpu_torch.util.collective as tcol
 
     # The JAX package's lists, read from its sources (importing them would
@@ -325,6 +327,14 @@ def test_collective_parallel_and_model_exports_match_the_jax_packages():
             if isinstance(node, ast.Assign) and node.targets[0].id == "__all__":
                 return sorted(ast.literal_eval(node.value))
 
+    # The GPU counterparts of the TPU names, and nothing else, differ: the
+    # gang of one bundle a host and the cloud provider.
+    gpu_for_tpu = {"tpu_slice_placement_group": "gpu_slice_placement_group",
+                   "TpuQueuedResourcesProvider": "GcpGpuInstancesProvider"}
+    for port_mod, rel in ((tutil, "ray_tpu/util/__init__.py"),
+                          (tautoscaler, "ray_tpu/autoscaler/__init__.py")):
+        assert sorted(port_mod.__all__) == sorted(gpu_for_tpu.get(n, n) for n in exported(rel))
+        assert all(hasattr(port_mod, n) for n in port_mod.__all__)
     assert sorted(tcol.__all__) == exported("ray_tpu/util/collective/__init__.py")
     assert len(tcol.__all__) == 20 and {"Backend", "ReduceOp", "sendrecv"} <= set(tcol.__all__)
     assert sorted(tparallel.__all__) == exported("ray_tpu/parallel/__init__.py")
@@ -401,13 +411,18 @@ def test_item_2_entry_points_work(tmp_path):
 def test_operator_modules_import_no_torch():
     # The CLI, the state API, the dashboard and job submission are host code:
     # `python -m ray_tpu_torch status` pays one process start, not a CUDA
-    # library load.
+    # library load. So are the cluster's modules (the autoscaler, placement,
+    # chaos) and the util host libraries over actors.
     code = (
         "import sys\n"
         "import ray_tpu_torch.__main__, ray_tpu_torch.scripts.cli, ray_tpu_torch.dashboard\n"
         "import ray_tpu_torch.util.state, ray_tpu_torch.job_submission\n"
         "import ray_tpu_torch.cluster_utils, ray_tpu_torch._private.launch\n"
         "import ray_tpu_torch._private.critical_path\n"
+        "import ray_tpu_torch.autoscaler, ray_tpu_torch.util.chaos\n"
+        "import ray_tpu_torch.util.gpu_topology_policy, ray_tpu_torch.util.placement_group\n"
+        "import ray_tpu_torch.util.queue, ray_tpu_torch.util.multiprocessing\n"
+        "import ray_tpu_torch.util.joblib\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -415,6 +430,42 @@ def test_operator_modules_import_no_torch():
         [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
     )
     assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+
+
+def test_joblib_backend_without_joblib_raises_only_when_registered(tmp_path):
+    # The card's machine has no joblib: importing the port's util.joblib must
+    # not need it, and registering the backend raises the reference's
+    # ImportError. This process blocks joblib in sys.modules.
+    code = (
+        "import sys\n"
+        "sys.modules['joblib'] = None\n"
+        "from ray_tpu_torch.util import joblib as rjoblib\n"
+        "try:\n"
+        "    rjoblib.register_ray()\n"
+        "except ImportError as e:\n"
+        "    print(e)\n"
+        "    assert isinstance(e.__cause__, ImportError)\n"
+        "else:\n"
+        "    raise AssertionError('registered without joblib')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "joblib is required for the ray_tpu_torch joblib backend"
+
+
+def test_node_topology_labels(monkeypatch):
+    import socket
+
+    from ray_tpu_torch._private.accelerators.gpu import NVLINK_DOMAIN_ENV, node_topology_labels
+
+    monkeypatch.delenv(NVLINK_DOMAIN_ENV, raising=False)
+    assert node_topology_labels(0) == {} and node_topology_labels(0.0) == {}
+    assert node_topology_labels(8) == {"gpu_nvlink_domain": socket.gethostname()}
+    monkeypatch.setenv(NVLINK_DOMAIN_ENV, "nvl72-rack-3")
+    assert node_topology_labels(0.5) == {"gpu_nvlink_domain": "nvl72-rack-3"}
 
 
 def test_detect_num_gpus_reads_visible_devices(monkeypatch):
@@ -554,7 +605,8 @@ def test_gpu_seams_of_the_train_stack():
     assert TorchConfig().resolve_backend(ScalingConfig()._resources) == "gloo"
     assert TorchConfig(backend="gloo").resolve_backend(gpu._resources) == "gloo"
     # save_pytree/load_pytree are ported (tests/test_torch_predictor.py):
-    # a round trip; TPU_SLICE placement is not.
+    # a round trip. TPU_SLICE placement has its GPU counterpart, GPU_SLICE,
+    # which the error names (tests/test_torch_placement.py).
     import tempfile
 
     with tempfile.TemporaryDirectory() as path:
@@ -562,7 +614,7 @@ def test_gpu_seams_of_the_train_stack():
         save_pytree(tree, path)
         back = load_pytree(path)
         assert torch.equal(back["w"], tree["w"]) and back["b"] == [np.float32(1.5)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with pytest.raises(ValueError, match="GPU_SLICE"):
         placement_group([{"GPU": 1}], strategy="TPU_SLICE")
     from ray_tpu_torch.parallel import MeshSpec
 

@@ -24,9 +24,11 @@ a handle, then a multiplexed replica, on a runtime of its own, then its
 shutdown check) or ``tune`` (a Trainer sweep of two 0.5-GPU trials of GPT-2
 small from seed 0, then PBT on two 0.5-GPU function trials with an exploit,
 on a runtime of its own, then its shutdown check) or ``cli_job`` (a head
-started with ``python -m ray_tpu_torch start --head --num-gpus 1``, a
-submitted job that trains GPT-2 small from seed 0 on one GPU worker, the
-cluster's state through the CLI and the dashboard, then ``stop``). The
+started with ``python -m ray_tpu_torch start --head --num-gpus 0``, an
+autoscaler in this process that launches one GPU node daemon for a
+submitted job that trains GPT-2 small from seed 0 on one GPU worker there,
+the node terminated after idle, the cluster's state through the CLI and the
+dashboard, then ``stop``). The
 kernels are built first, as ``chip_smoke.py``'s build phase does, so that no
 phase's first call waits on ``nvcc``. The phases run in this process, after the flags
 ``chip_smoke.py`` sets (no TF32); each prints its JSON line, and the card's
