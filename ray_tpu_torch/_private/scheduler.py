@@ -622,6 +622,9 @@ class PGRecord:
     state: str = "PENDING"
     ready_futures: List[concurrent.futures.Future] = field(default_factory=list)
     name: str = ""
+    # GPU_SLICE: the NVLink domain the gang was placed in, None when it was
+    # placed by the STRICT_SPREAD fallback (or not yet placed).
+    domain: Optional[str] = None
 
 
 def _fits(avail: Dict[str, float], req: Dict[str, float]) -> bool:
@@ -5204,8 +5207,11 @@ class Scheduler:
                     if not any(place(b, n) for n in nodes):
                         return False
         elif strategy in ("GPU_SLICE", "STRICT_SPREAD"):
+            from ray_tpu_torch.util.gpu_topology_policy import DOMAIN_LABEL
+
+            used = {b.node for b in pg.bundles if b.node is not None}
+
             def place_spread() -> bool:
-                used = {b.node for b in pg.bundles if b.node is not None}
                 for b in unplaced:
                     placed_ids = {p[1].node_id for p in plan}
                     cand = [
@@ -5216,9 +5222,14 @@ class Scheduler:
                         return False
                 return True
 
+            # A gang that lost some of its hosts re-places their bundles on
+            # hosts it does not hold: in the domain it holds when it was
+            # placed in one (waiting until a host there fits), else by
+            # STRICT_SPREAD's rule, as it was first placed.
+            pinned = pg.domain if used else None
             chosen = (
-                self._plan_gpu_slice(unplaced, nodes, scratch)
-                if strategy == "GPU_SLICE"
+                self._plan_gpu_slice(unplaced, nodes, scratch, used, pinned)
+                if strategy == "GPU_SLICE" and (pinned is not None or not used)
                 else None
             )
             # NVLink-domain-aware: the gang's hosts come from one domain
@@ -5230,8 +5241,10 @@ class Scheduler:
                 for b, n in zip(unplaced, chosen):
                     if not place(b, n):  # cannot happen: pre-validated
                         return False
-            elif not place_spread():
+            elif pinned is not None or not place_spread():
                 return False
+            if strategy == "GPU_SLICE" and not used:
+                pg.domain = None if chosen is None else chosen[0].labels[DOMAIN_LABEL]
         else:  # SPREAD (best-effort round robin)
             for i, b in enumerate(unplaced):
                 order = nodes[i % len(nodes):] + nodes[: i % len(nodes)] if nodes else []
@@ -5243,14 +5256,18 @@ class Scheduler:
             b.available = dict(b.resources)
         return True
 
-    def _plan_gpu_slice(self, unplaced: List[Bundle], nodes: List[NodeState], scratch):
+    def _plan_gpu_slice(self, unplaced: List[Bundle], nodes: List[NodeState], scratch,
+                        used, pinned: Optional[str]):
         """Choose distinct hosts of one NVLink domain for the bundles; None ->
-        the caller falls back to plain spread placement.
+        no domain can take them (the caller falls back to plain spread
+        placement unless the gang is pinned).
 
         Hosts are grouped by their `gpu_nvlink_domain` label and listed in the
         order they joined. Every bundle is checked against every host of a
         domain before the domain counts as feasible, so a heterogeneous gang
-        either fits every chosen host or falls back."""
+        either fits every chosen host or falls back. `used` are the hosts that
+        hold the gang's placed bundles, never chosen again; `pinned` is their
+        domain, the only one considered."""
         from ray_tpu_torch.util.gpu_topology_policy import DOMAIN_LABEL, choose_domain_hosts
 
         domains: Dict[str, List[NodeState]] = {}
@@ -5261,6 +5278,8 @@ class Scheduler:
         chosen = choose_domain_hosts(
             {d: [n.node_id.binary() for n in members] for d, members in domains.items()},
             len(unplaced),
+            exclude=[nid.binary() for nid in used],
+            domain=pinned,
         )
         if chosen is None:
             return None

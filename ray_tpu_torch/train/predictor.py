@@ -25,7 +25,14 @@ from ray_tpu_torch._private.accelerators.gpu import resolve_device
 from ray_tpu_torch.air.checkpoint import Checkpoint
 
 class Predictor:
-    """Interface: construct from a Checkpoint, score numpy batches."""
+    """Interface: construct from a Checkpoint, score numpy batches.
+
+    ``uses_gpu``: whether the predictor scores on the GPU. A host predictor
+    (``XGBoostPredictor``) sets it False, and a ``BatchPredictor`` pool of it
+    then holds no ``GPU`` unless asked to. A class that does not subclass
+    this one is taken to use the GPU unless it says otherwise."""
+
+    uses_gpu = True
 
     @classmethod
     def from_checkpoint(cls, checkpoint: Checkpoint, **kwargs) -> "Predictor":
@@ -161,7 +168,8 @@ class BatchPredictor:
         ``num_gpus_per_worker`` (upstream Ray's argument) is each pool
         actor's share of ``GPU``. ``None``: the pool together holds one GPU
         (``1 / num_workers`` each; fractions pack onto one device), or none
-        when the predictor's kwargs say ``device="cpu"``. A pool asking for
+        when the predictor's kwargs say ``device="cpu"`` or its class runs
+        on the host (``uses_gpu = False``). A pool asking for
         more GPU than the cluster has raises ``ValueError`` when it starts."""
         ckpt = self._checkpoint
         pred_cls = self._predictor_cls
@@ -173,7 +181,8 @@ class BatchPredictor:
 
             device = pred_kwargs.get("device")
             on_cpu = device is not None and torch.device(device).type == "cpu"
-            num_gpus_per_worker = 0 if on_cpu else 1 / num_workers
+            on_gpu = getattr(pred_cls, "uses_gpu", True) and not on_cpu
+            num_gpus_per_worker = 1 / num_workers if on_gpu else 0
 
         class _Scorer:
             def __init__(self):

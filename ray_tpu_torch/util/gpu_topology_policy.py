@@ -13,7 +13,9 @@ the network. So what carries over from the TPU policy is:
    (the scheduler lists nodes in the order they joined), which fixes the
    ranks;
  - among the domains that fit, the one left with the fewest feasible hosts
-   free wins (best fit), so large domains stay whole for large gangs.
+   free wins (best fit), so large domains stay whole for large gangs;
+ - a gang that lost a host re-places its bundles in the domain it holds, on
+   hosts it does not hold yet, or waits for one there.
 
 Domains come from the ``gpu_nvlink_domain`` node label
 (``_private/accelerators/gpu.py::node_topology_labels``). The scheduler checks
@@ -22,7 +24,7 @@ each bundle against its host before it takes the plan.
 
 from __future__ import annotations
 
-from typing import Dict, Hashable, List, Optional, Sequence
+from typing import Dict, Hashable, Iterable, List, Optional, Sequence
 
 DOMAIN_LABEL = "gpu_nvlink_domain"
 
@@ -30,6 +32,9 @@ DOMAIN_LABEL = "gpu_nvlink_domain"
 def choose_domain_hosts(
     domains: Dict[Hashable, Sequence[Hashable]],
     num_hosts: int,
+    *,
+    exclude: Iterable[Hashable] = (),
+    domain: Optional[Hashable] = None,
 ) -> Optional[List[Hashable]]:
     """Pick ``num_hosts`` hosts of one NVLink domain.
 
@@ -37,6 +42,10 @@ def choose_domain_hosts(
       domains: domain name -> the ids of its feasible hosts (hosts that can
         take one bundle of the gang), in a stable order.
       num_hosts: bundles to place, one a host.
+      exclude: hosts never to choose: those that already hold a bundle of the
+        gang, when it re-places the bundles of a lost host.
+      domain: the only domain to consider (the one the gang's placed bundles
+        sit in); None considers every domain.
 
     Returns the first ``num_hosts`` hosts of the chosen domain in the order
     given, or None when no domain has enough feasible hosts. Ties between
@@ -44,7 +53,9 @@ def choose_domain_hosts(
     """
     if num_hosts <= 0:
         return None
-    unique = {name: list(dict.fromkeys(hosts)) for name, hosts in domains.items()}
+    skip = set(exclude)
+    unique = {name: [h for h in dict.fromkeys(hosts) if h not in skip]
+              for name, hosts in domains.items() if domain is None or name == domain}
     fitting = [name for name, hosts in unique.items() if len(hosts) >= num_hosts]
     if not fitting:
         return None

@@ -81,8 +81,6 @@ EXCLUDED = {
         "(AlgorithmConfig.learners num_gpus_per_learner=1, raising without one; "
         "ROADMAP.md Queue 3); tests/test_torch_rllib_offline.py runs this case with "
         "num_gpus_per_learner=0"),
-    "test_batch_predictor.py::test_batch_predictor_with_gbdt": (
-        "waits for the GBDT trainers and XGBoostPredictor: ROADMAP.md Queue 1 item 13"),
 }
 RUN = [t for t in TEST_IDS if t not in EXCLUDED]
 

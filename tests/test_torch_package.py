@@ -412,7 +412,8 @@ def test_operator_modules_import_no_torch():
     # The CLI, the state API, the dashboard and job submission are host code:
     # `python -m ray_tpu_torch status` pays one process start, not a CUDA
     # library load. So are the cluster's modules (the autoscaler, placement,
-    # chaos) and the util host libraries over actors.
+    # chaos), the util host libraries over actors, and GBDT (numpy on
+    # actors that hold no GPU).
     code = (
         "import sys\n"
         "import ray_tpu_torch.__main__, ray_tpu_torch.scripts.cli, ray_tpu_torch.dashboard\n"
@@ -423,6 +424,8 @@ def test_operator_modules_import_no_torch():
         "import ray_tpu_torch.util.gpu_topology_policy, ray_tpu_torch.util.placement_group\n"
         "import ray_tpu_torch.util.queue, ray_tpu_torch.util.multiprocessing\n"
         "import ray_tpu_torch.util.joblib\n"
+        "import ray_tpu_torch.train.gbdt_trainer, ray_tpu_torch.train.gbdt._engine\n"
+        "import ray_tpu_torch.train.xgboost, ray_tpu_torch.train.lightgbm\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -144,6 +144,82 @@ def test_gpu_slice_too_few_hosts_stays_pending_and_is_demand(cluster):
     assert pg.wait(timeout_seconds=30)
 
 
+# ------------------------------------------------------------------ a lost host
+def _slice_on_a0_a1(cluster, gpus_per_host):
+    """Domains a and b of two 8-GPU hosts each; a gang of two placed on
+    [a0, a1]; then a1 dies. Returns (a0, b0, b1, pg)."""
+    a0, a1 = _domain_nodes(cluster, "a", 2)
+    b0, b1 = _domain_nodes(cluster, "b", 2)
+    pg = gpu_slice_placement_group(num_hosts=2, gpus_per_host=gpus_per_host, cpus_per_host=1)
+    assert pg.wait(timeout_seconds=30)
+    assert _chosen(cluster, pg) == [a0, a1]
+    assert cluster.remove_node(a1)
+    return a0, b0, b1, pg
+
+
+def _state(cluster, pg):
+    return cluster._scheduler.pgs[PlacementGroupID.from_hex(pg.id)].state
+
+
+def test_gpu_slice_that_loses_its_domains_last_free_host_waits_as_demand(cluster):
+    # g = 8: a0 is full, a has no host left, b is free. The lost bundle is
+    # never placed on b (two domains): the gang waits and is demand.
+    a0, b0, b1, pg = _slice_on_a0_a1(cluster, 8)
+    assert not pg.wait(timeout_seconds=0.5)
+    assert _chosen(cluster, pg) == [a0, None]
+    assert _state(cluster, pg) == "RESCHEDULING"
+    state = ray_tpu_torch._private.worker.global_worker.context.autoscaler_state()
+    assert state["pending_bundles"] == [{"CPU": 1.0, "GPU": 8.0}]
+
+
+def test_gpu_slice_never_re_places_on_a_host_it_holds(cluster):
+    # g = 4: a0 has room for the lost bundle too, but one host twice is not a
+    # gang of two hosts; b is another domain. So the gang waits.
+    a0, b0, b1, pg = _slice_on_a0_a1(cluster, 4)
+    assert not pg.wait(timeout_seconds=0.5)
+    assert _chosen(cluster, pg) == [a0, None]
+    assert _state(cluster, pg) == "RESCHEDULING"
+
+
+@pytest.mark.parametrize("gpus_per_host", [8, 4])
+def test_gpu_slice_re_places_on_a_fresh_host_of_its_domain(cluster, gpus_per_host):
+    a0, b0, b1, pg = _slice_on_a0_a1(cluster, gpus_per_host)
+    assert not pg.wait(timeout_seconds=0.5)
+    (a2,) = _domain_nodes(cluster, "a", 1)
+    assert pg.wait(timeout_seconds=30)
+    assert _chosen(cluster, pg) == [a0, a2]
+    assert _state(cluster, pg) == "CREATED"
+    state = ray_tpu_torch._private.worker.global_worker.context.autoscaler_state()
+    assert state["pending_bundles"] == []
+
+
+def test_gpu_slice_placed_by_the_fallback_re_places_on_any_free_distinct_host(cluster):
+    # No labels: the gang took distinct hosts by STRICT_SPREAD's rule, and
+    # keeps that rule when a host dies: any free host it does not hold, a
+    # labelled one included, never a host it holds.
+    n0, n1, n2 = (cluster.add_node(num_cpus=2) for _ in range(3))
+    pg = placement_group([{"CPU": 2}] * 2, strategy="GPU_SLICE")
+    assert pg.wait(timeout_seconds=30)
+    assert _chosen(cluster, pg) == [n0, n1]
+    assert cluster.remove_node(n1)
+    assert pg.wait(timeout_seconds=30)
+    assert _chosen(cluster, pg) == [n0, n2]
+    assert cluster.remove_node(n2)
+    assert not pg.wait(timeout_seconds=0.5)  # n0 has no room for a second bundle
+    (a0,) = _domain_nodes(cluster, "a", 1)
+    assert pg.wait(timeout_seconds=30)
+    assert _chosen(cluster, pg) == [n0, a0]
+    assert _state(cluster, pg) == "CREATED"
+
+
+def test_choose_domain_hosts_excludes_held_hosts_and_keeps_the_pinned_domain():
+    domains = {"a": ["a0", "a2"], "b": ["b0", "b1"]}
+    assert choose_domain_hosts(domains, 1, exclude=["a0"], domain="a") == ["a2"]
+    assert choose_domain_hosts(domains, 2, exclude=["a0"], domain="a") is None
+    assert choose_domain_hosts(domains, 1, exclude=["a0", "a2"], domain="a") is None
+    assert choose_domain_hosts(domains, 1, exclude=["b0"]) == ["b1"]
+
+
 def test_tpu_slice_raises_naming_gpu_slice(cluster):
     assert "GPU_SLICE" in VALID_STRATEGIES and "TPU_SLICE" not in VALID_STRATEGIES
     with pytest.raises(ValueError, match="GPU_SLICE"):
