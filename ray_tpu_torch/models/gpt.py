@@ -23,6 +23,7 @@ from ray_tpu_torch.models import moe
 from ray_tpu_torch.models.stack import apply_stack, remat, resolve_attention
 from ray_tpu_torch.ops.basic import HeadF32, causal_lm_loss, fold_seed
 from ray_tpu_torch.parallel.spmd import fold_batch_index, spmd_for
+from ray_tpu_torch.util.tracing import region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,10 +202,11 @@ def param_logical_axes(config: GPTConfig) -> Dict[str, Any]:
 
 # --------------------------------------------------------------------------- forward
 def _layer_norm(x, scale, bias, eps=1e-5):
-    x = x.float()
-    mean = x.mean(-1, keepdim=True)
-    var = ((x - mean) ** 2).mean(-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+    with region("gpt.ln"):
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(-1, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
 def _dropout(x, rate: float, seed: Optional[int]):
@@ -257,47 +259,51 @@ def _block(x, layer, config: GPTConfig, attention_fn, drop_seed=None, sub_remat=
         s1, s2 = fold_seed(drop_seed, 1), fold_seed(drop_seed, 2)
 
     def qkv_part(x, layer):
-        h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"]).to(cdt)
-        qkv_w = _weight(layer, "qkv_w", cdt, spmd)  # (D, 3, nh_local, hd)
-        nh = qkv_w.shape[2]
-        if spmd is not None:
-            h = spmd.copy_to_tp(h, nh < config.n_head)
-        qkv = (h @ qkv_w.reshape(D, 3 * nh * hd)).view(B, S, 3, nh, hd)
-        qkv = qkv + layer["qkv_b"].to(cdt)
-        # (B, nh, S, hd), contiguous: the attention kernels take no strides.
-        return tuple(qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+        with region("gpt.qkv"):
+            h = _layer_norm(x, layer["ln1_scale"], layer["ln1_bias"]).to(cdt)
+            qkv_w = _weight(layer, "qkv_w", cdt, spmd)  # (D, 3, nh_local, hd)
+            nh = qkv_w.shape[2]
+            if spmd is not None:
+                h = spmd.copy_to_tp(h, nh < config.n_head)
+            qkv = (h @ qkv_w.reshape(D, 3 * nh * hd)).view(B, S, 3, nh, hd)
+            qkv = qkv + layer["qkv_b"].to(cdt)
+            # (B, nh, S, hd), contiguous: the attention kernels take no strides.
+            return tuple(qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
 
     def out_mlp_part(x, o, layer):
-        nh = o.shape[1]
-        out_w = _weight(layer, "out_w", cdt, spmd).reshape(nh * hd, D)
-        o = _out_product(o.transpose(1, 2).reshape(B, S, nh * hd), out_w, cdt, spmd,
-                         nh < config.n_head)
-        x = x + _dropout(o + layer["out_b"].to(cdt), config.dropout, s1)
-        h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"]).to(cdt)
-        aux = None
-        if config.moe_experts:
-            m = {k: _weight(layer["moe"], k, cdt if k != "router_w" else v.dtype, spmd)
-                 for k, v in layer["moe"].items()}
-            h, aux = moe.moe_mlp(h, m["router_w"], m["fc_w"], m["fc_b"], m["proj_w"],
-                                 m["proj_b"], capacity_factor=config.moe_capacity_factor,
-                                 batch_mean=_moe_batch_mean(spmd), spmd=spmd,
-                                 tensor_split=m["fc_w"].shape[-1] < config.ff_dim)
-        else:
-            fc_w = _weight(layer, "fc_w", cdt, spmd)  # (D, F_local)
-            sharded = fc_w.shape[-1] < config.ff_dim
-            if spmd is not None:
-                h = spmd.copy_to_tp(h, sharded)
-            h = h @ fc_w + layer["fc_b"].to(cdt)
-            h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-            h = _out_product(h, _weight(layer, "proj_w", cdt, spmd), cdt, spmd, sharded)
-            h = h + layer["proj_b"].to(cdt)
-        return x + _dropout(h, config.dropout, s2), aux
+        with region("gpt.out"):
+            nh = o.shape[1]
+            out_w = _weight(layer, "out_w", cdt, spmd).reshape(nh * hd, D)
+            o = _out_product(o.transpose(1, 2).reshape(B, S, nh * hd), out_w, cdt, spmd,
+                             nh < config.n_head)
+            x = x + _dropout(o + layer["out_b"].to(cdt), config.dropout, s1)
+        with region("gpt.mlp"):
+            h = _layer_norm(x, layer["ln2_scale"], layer["ln2_bias"]).to(cdt)
+            aux = None
+            if config.moe_experts:
+                m = {k: _weight(layer["moe"], k, cdt if k != "router_w" else v.dtype, spmd)
+                     for k, v in layer["moe"].items()}
+                h, aux = moe.moe_mlp(h, m["router_w"], m["fc_w"], m["fc_b"], m["proj_w"],
+                                     m["proj_b"], capacity_factor=config.moe_capacity_factor,
+                                     batch_mean=_moe_batch_mean(spmd), spmd=spmd,
+                                     tensor_split=m["fc_w"].shape[-1] < config.ff_dim)
+            else:
+                fc_w = _weight(layer, "fc_w", cdt, spmd)  # (D, F_local)
+                sharded = fc_w.shape[-1] < config.ff_dim
+                if spmd is not None:
+                    h = spmd.copy_to_tp(h, sharded)
+                h = h @ fc_w + layer["fc_b"].to(cdt)
+                h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+                h = _out_product(h, _weight(layer, "proj_w", cdt, spmd), cdt, spmd, sharded)
+                h = h + layer["proj_b"].to(cdt)
+            return x + _dropout(h, config.dropout, s2), aux
 
     if sub_remat:
         q, k, v = remat(qkv_part)(x, layer)
     else:
         q, k, v = qkv_part(x, layer)
-    o = resolve_attention(q, k, v, config.attention, attention_fn)  # (B, nh, S, hd)
+    with region("gpt.attention"):
+        o = resolve_attention(q, k, v, config.attention, attention_fn)  # (B, nh, S, hd)
     if sub_remat:
         return remat(out_mlp_part)(x, o, layer)
     return out_mlp_part(x, o, layer)
@@ -328,20 +334,21 @@ def lm_head_loss(x, head, targets, vocab: int, spmd, num_microbatches=None):
         logits = _lm_head(xc, head)
         return causal_lm_loss(logits, tc) if spmd is None else spmd.token_ce(logits, tc, vocab)
 
-    if spmd is None:
-        return ce(x, targets)
-    if spmd.pp == 1:
-        return spmd.batch_mean(ce(x, targets))
-    if not spmd.last_stage:
-        return spmd.stage_sum(x)
-    from torch.utils.checkpoint import checkpoint
+    with region("gpt.head_loss"):
+        if spmd is None:
+            return ce(x, targets)
+        if spmd.pp == 1:
+            return spmd.batch_mean(ce(x, targets))
+        if not spmd.last_stage:
+            return spmd.stage_sum(x)
+        from torch.utils.checkpoint import checkpoint
 
-    from ray_tpu_torch.parallel.pipeline import microbatches
+        from ray_tpu_torch.parallel.pipeline import microbatches
 
-    m = microbatches(spmd, x.shape[0], num_microbatches)[1]
-    parts = [checkpoint(ce, xc, tc, use_reentrant=False)
-             for xc, tc in zip(x.chunk(m), targets.chunk(m))]
-    return spmd.stage_sum(spmd.batch_mean(torch.stack(parts).mean()))
+        m = microbatches(spmd, x.shape[0], num_microbatches)[1]
+        parts = [checkpoint(ce, xc, tc, use_reentrant=False)
+                 for xc, tc in zip(x.chunk(m), targets.chunk(m))]
+        return spmd.stage_sum(spmd.batch_mean(torch.stack(parts).mean()))
 
 
 def stage_output(x, shape, dtype, spmd):
@@ -364,30 +371,31 @@ def _hidden(params, tokens, config: GPTConfig, attention_fn, dropout_seed, spmd,
     ``config.dtype``, whole over fsdp on the first and last stages)."""
     B, S = tokens.shape
     cdt = config.dtype
-    wte = params["wte"].to(cdt)
-    if spmd is None:
-        x = F.embedding(tokens, wte) + params["wpe"].to(cdt)[:S][None]
-    else:
-        if config.moe_experts % spmd.ep:
-            # ShardingRules would replicate the experts instead of splitting them.
-            raise ValueError(f"{config.moe_experts} experts do not split over an expert axis "
-                             f"of {spmd.ep}")
-        dropout_seed = fold_batch_index(dropout_seed, spmd)
-        if spmd.first_stage or spmd.last_stage:
-            wte = spmd.gather(wte, "wte")
-        if spmd.first_stage:
-            # Positions at this context slice's global offset.
-            off = spmd.seq_offset(S)
-            wpe = spmd.gather(params["wpe"].to(cdt), "wpe")
-            x = spmd.embed(tokens, wte, config.vocab_size) + wpe[off:off + S][None]
-        else:  # the stage's input comes from the previous stage
-            x = torch.empty((B, S, config.d_model), dtype=cdt, device=tokens.device)
-    use_dropout = dropout_seed is not None and config.dropout > 0
-    layers_seed = None
-    if use_dropout:
-        if spmd is None or spmd.first_stage:
-            x = _dropout(x, config.dropout, fold_seed(dropout_seed, 0))
-        layers_seed = fold_seed(dropout_seed, 1)
+    with region("gpt.embed"):
+        wte = params["wte"].to(cdt)
+        if spmd is None:
+            x = F.embedding(tokens, wte) + params["wpe"].to(cdt)[:S][None]
+        else:
+            if config.moe_experts % spmd.ep:
+                # ShardingRules would replicate the experts instead of splitting them.
+                raise ValueError(f"{config.moe_experts} experts do not split over an expert "
+                                 f"axis of {spmd.ep}")
+            dropout_seed = fold_batch_index(dropout_seed, spmd)
+            if spmd.first_stage or spmd.last_stage:
+                wte = spmd.gather(wte, "wte")
+            if spmd.first_stage:
+                # Positions at this context slice's global offset.
+                off = spmd.seq_offset(S)
+                wpe = spmd.gather(params["wpe"].to(cdt), "wpe")
+                x = spmd.embed(tokens, wte, config.vocab_size) + wpe[off:off + S][None]
+            else:  # the stage's input comes from the previous stage
+                x = torch.empty((B, S, config.d_model), dtype=cdt, device=tokens.device)
+        use_dropout = dropout_seed is not None and config.dropout > 0
+        layers_seed = None
+        if use_dropout:
+            if spmd is None or spmd.first_stage:
+                x = _dropout(x, config.dropout, fold_seed(dropout_seed, 0))
+            layers_seed = fold_seed(dropout_seed, 1)
 
     save_attn = config.remat and config.remat_policy == "save_attn"
 
@@ -408,7 +416,8 @@ def _hidden(params, tokens, config: GPTConfig, attention_fn, dropout_seed, spmd,
                              attention_fn=attention_fn, spmd=spmd,
                              num_microbatches=num_microbatches)
     if spmd is None or spmd.last_stage:
-        x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(cdt)
+        with region("gpt.ln"):  # and its cast, which no other region holds
+            x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"]).to(cdt)
     return x, moe_aux, wte
 
 

@@ -12,15 +12,28 @@ only their products; the combine is summed across the expert group in f32.
 Over a ``tensor`` axis each expert's hidden dim is split, column-parallel in
 and row-parallel out. Over a ``context`` axis a row's tokens are split across
 ranks, and a token's slot counts the tokens of the ranks before it.
+
+``route_counts`` counts the tokens every layer's forward routed and dropped
+over capacity, summed on the device without a host sync, from the first
+``reset_route_counts`` in a process on.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from ray_tpu_torch.util.tracing import region
+
+# Tokens routed (a host count) and kept within capacity by MoE forwards
+# since reset_route_counts: the kept ones as one int64 count a token position
+# on each device, as long as the largest forward, added to on the device.
+_ROUTES: Dict[str, Any] = {"on": False, "routed": 0, "kept": {}}
+_ROUTES_LOCK = threading.Lock()
 
 
 def moe_capacity(num_tokens: int, num_experts: int, capacity_factor: float) -> int:
@@ -62,6 +75,44 @@ def route(x, router_w, capacity_factor: float, spmd=None) -> Route:
     return Route(probs, expert_idx, gate, slot, keep, C)
 
 
+def _count_routes(keep) -> None:
+    """Add a forward's routing to ``_ROUTES`` once ``reset_route_counts`` has
+    started the count: one kernel, no sync (the sum waits for
+    ``route_counts``). A checkpoint recomputes the forward inside the
+    backward's graph task, and counts nothing there."""
+    if not _ROUTES["on"] or torch._C._current_graph_task_id() != -1:
+        return
+    n = keep.numel()
+    # The device's counts live outside inference mode, so that a forward
+    # under torch.inference_mode and a training forward add to the same.
+    with _ROUTES_LOCK, torch.inference_mode(False):
+        kept = _ROUTES["kept"].get(keep.device)
+        if kept is None or kept.numel() < n:
+            grown = torch.zeros(n, dtype=torch.int64, device=keep.device)
+            if kept is not None:
+                grown[:kept.numel()] = kept
+            _ROUTES["kept"][keep.device] = kept = grown
+        kept[:n].add_(keep.reshape(-1))
+        _ROUTES["routed"] += n
+
+
+def route_counts() -> Dict[str, int]:
+    """Tokens routed and dropped over capacity by every MoE layer's forward
+    (a checkpoint's recompute not counted again) since the last
+    ``reset_route_counts``, on this rank. Reads the device's sum: call it
+    after the caller's sync."""
+    with _ROUTES_LOCK:
+        kept = sum(int(t.sum()) for t in _ROUTES["kept"].values())
+        return {"routed": _ROUTES["routed"], "dropped": _ROUTES["routed"] - kept}
+
+
+def reset_route_counts() -> None:
+    """Zero the counts, and count from now on in this process: until its
+    first call a MoE forward launches nothing for the counter."""
+    with _ROUTES_LOCK:
+        _ROUTES.update(on=True, routed=0, kept={})
+
+
 def moe_mlp(
     x,  # (B, S, D) activations, config.dtype
     router_w,  # (D, E) f32
@@ -84,7 +135,9 @@ def moe_mlp(
     B, S, D = x.shape
     E, local_e = router_w.shape[1], fc_w.shape[0]
     cdt = x.dtype
-    r = route(x, router_w, capacity_factor, spmd)
+    with region("moe.route"):
+        r = route(x, router_w, capacity_factor, spmd)
+        _count_routes(r.keep)
     C = r.capacity
     first, gate = 0, r.gate
     if local_e < E:  # this rank's experts: their part of every gradient is summed
@@ -93,31 +146,37 @@ def moe_mlp(
     if tensor_split:
         x = spmd.copy_to_tp(x, True)
 
-    dispatch = (
-        F.one_hot(r.expert_idx, E)[..., first:first + local_e].to(cdt)[..., None]
-        * F.one_hot(r.slot, C).to(cdt)[..., None, :]
-        * r.keep[..., None, None].to(cdt)
-    )  # (B, S, local_e, C)
-    combine = dispatch * gate.to(cdt)[..., None, None]
+    with region("moe.dispatch"):
+        dispatch = (
+            F.one_hot(r.expert_idx, E)[..., first:first + local_e].to(cdt)[..., None]
+            * F.one_hot(r.slot, C).to(cdt)[..., None, :]
+            * r.keep[..., None, None].to(cdt)
+        )  # (B, S, local_e, C)
+        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x).reshape(local_e, B * C, D)
 
-    expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x).reshape(local_e, B * C, D)
-    h = torch.einsum("egd,edf->egf", expert_in, fc_w.to(cdt)) + fc_b.to(cdt)[:, None, :]
-    h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    if tensor_split:
-        h = spmd.row_parallel(h, proj_w.to(cdt), cdt)
-    else:
-        h = torch.einsum("egf,efd->egd", h, proj_w.to(cdt))
-    h = (h + proj_b.to(cdt)[:, None, :]).reshape(local_e, B, C, D)
-    if local_e < E:
-        out = spmd.expert_sum(torch.einsum("bsec,ebcd->bsd", combine.float(), h.float()), cdt)
-    else:
-        out = torch.einsum("bsec,ebcd->bsd", combine, h)
+    with region("moe.experts"):
+        h = torch.einsum("egd,edf->egf", expert_in, fc_w.to(cdt)) + fc_b.to(cdt)[:, None, :]
+        h = F.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+        if tensor_split:
+            h = spmd.row_parallel(h, proj_w.to(cdt), cdt)
+        else:
+            h = torch.einsum("egf,efd->egd", h, proj_w.to(cdt))
+        h = (h + proj_b.to(cdt)[:, None, :]).reshape(local_e, B, C, D)
 
-    assign_frac = F.one_hot(r.expert_idx, E).float().mean((0, 1))  # (E,)
-    prob_frac = r.probs.mean((0, 1))  # (E,)
-    if batch_mean is not None:
-        assign_frac, prob_frac = batch_mean(assign_frac), batch_mean(prob_frac)
-    aux = E * torch.sum(assign_frac * prob_frac)
+    with region("moe.combine"):
+        combine = dispatch * gate.to(cdt)[..., None, None]
+        if local_e < E:
+            out = spmd.expert_sum(torch.einsum("bsec,ebcd->bsd", combine.float(), h.float()),
+                                  cdt)
+        else:
+            out = torch.einsum("bsec,ebcd->bsd", combine, h)
+
+    with region("moe.route"):
+        assign_frac = F.one_hot(r.expert_idx, E).float().mean((0, 1))  # (E,)
+        prob_frac = r.probs.mean((0, 1))  # (E,)
+        if batch_mean is not None:
+            assign_frac, prob_frac = batch_mean(assign_frac), batch_mean(prob_frac)
+        aux = E * torch.sum(assign_frac * prob_frac)
     return out, aux
 
 

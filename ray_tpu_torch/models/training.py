@@ -33,6 +33,7 @@ from ray_tpu_torch.models import gpt, llama, resnet
 from ray_tpu_torch.ops.basic import fold_seed
 from ray_tpu_torch.parallel.mesh import ShardingRules, axis_sizes, batch_sharding, distribute
 from ray_tpu_torch.parallel.spmd import spmd_for
+from ray_tpu_torch.util.tracing import region
 
 _DROPOUT_BASE_SEED = 0x5EED
 
@@ -118,26 +119,27 @@ class AdamW:
         follow ``tree_leaves(params)``. Returns the global norm of ``grads``,
         taken before clipping. DTensors are updated through their local
         shards; their gradients must have the params' placements."""
-        g_norm = global_norm(grads)
-        leaves = [_local(p) for p in tree_leaves(params)]
-        mus = [_local(m) for m in tree_leaves(opt_state["mu"])]
-        nus = [_local(n) for n in tree_leaves(opt_state["nu"])]
-        grads = [_local(g) for g in grads]
-        if self.grad_clip is not None:
-            keep = g_norm < self.grad_clip
-            grads = [torch.where(keep, g, (g / g_norm) * self.grad_clip) for g in grads]
-        count = opt_state["count"] + 1
-        bc1, bc2 = 1 - self.b1 ** count, 1 - self.b2 ** count
-        step_size = -self.lr(opt_state["count"])
-        for p, g, mu, nu in zip(leaves, grads, mus, nus):
-            mu.mul_(self.b1).add_((1 - self.b1) * g)
-            nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            if self.weight_decay:
-                u = u + self.weight_decay * p
-            p.add_(u * step_size)
-        opt_state["count"] = count
-        return g_norm
+        with region("train.optimizer"):
+            g_norm = global_norm(grads)
+            leaves = [_local(p) for p in tree_leaves(params)]
+            mus = [_local(m) for m in tree_leaves(opt_state["mu"])]
+            nus = [_local(n) for n in tree_leaves(opt_state["nu"])]
+            grads = [_local(g) for g in grads]
+            if self.grad_clip is not None:
+                keep = g_norm < self.grad_clip
+                grads = [torch.where(keep, g, (g / g_norm) * self.grad_clip) for g in grads]
+            count = opt_state["count"] + 1
+            bc1, bc2 = 1 - self.b1 ** count, 1 - self.b2 ** count
+            step_size = -self.lr(opt_state["count"])
+            for p, g, mu, nu in zip(leaves, grads, mus, nus):
+                mu.mul_(self.b1).add_((1 - self.b1) * g)
+                nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                if self.weight_decay:
+                    u = u + self.weight_decay * p
+                p.add_(u * step_size)
+            opt_state["count"] = count
+            return g_norm
 
 
 def _local(t):

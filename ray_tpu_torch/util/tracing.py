@@ -28,13 +28,19 @@ given an explicit sample_rate — explicit enabling is debug mode.
     ... run tasks ...
     spans = tracing.collect_spans()
     tracing.chrome_trace("trace.json")
+
+Regions of device work (``region``) are another matter: named ranges inside
+a train step, recorded by ``torch.profiler`` beside the kernels they launch
+and on its clock, and nothing at all while no profiler runs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -372,6 +378,24 @@ class span:
     def __exit__(self, exc_type, _exc, _tb):
         end_span(self._span, "ERROR" if exc_type else "OK")
         return False
+
+
+# ------------------------------------------------------------------ regions
+_NO_REGION = contextlib.nullcontext()
+
+
+def region(name: str):
+    """A ``record_function`` range named ``name`` while a profiler runs,
+    else one shared null context (the cost: one flag check). The range lands
+    in the profiler's trace with the host ops and kernels it encloses, on the
+    trace's own clock. PyTorch records such a range only when the profiler
+    traces CPU activity, and tells a caller no more than that a profiler
+    runs: under a profiler of the device alone the range opens and records
+    nothing."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    if profiler is None or not profiler._is_profiler_enabled:
+        return _NO_REGION
+    return sys.modules["torch"].profiler.record_function(name)
 
 
 # ------------------------------------------------------------------ flushing
