@@ -1,12 +1,15 @@
 """Finding a cell's files by the names in ``BENCHMARK.json``.
 
 A cell names a configuration and a traffic mix. The configuration is the
-file that its entry in ``configs`` names; the traffic is
+file that its entry in ``configs`` names, whose ``model_type`` chooses its
+architecture (``port_bench/archs/<model_type>.py``) and whose ``reference``
+its plain reference (``port_bench/reference/<reference>.py``); the traffic is
 ``port_bench/traffic/<traffic>.json`` (which names its generator module in
 ``port_bench/traffic/``); each per-layer metric that lists the cell (or
 lists none) is read by ``port_bench/metrics/<metric>.py``; the limits of the
 check are ``port_bench/limits/<cell>.json``. Adding a cell, a mix or a
-metric adds files and entries and edits none.
+metric, or a configuration of another architecture, adds files and entries
+and edits none.
 """
 
 from __future__ import annotations
@@ -14,6 +17,8 @@ from __future__ import annotations
 import importlib.util
 import json
 import os
+
+from port_bench import archs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -47,7 +52,8 @@ def resolve(name, root=ROOT):
 def assemble(bench, name, config, traffic, chips, root=ROOT):
     """A cell from a configuration's name, a traffic mix's and its chips:
     ``resolve``'s work, and a way to run a cell whose files are here before
-    ``BENCHMARK.json`` holds it."""
+    ``BENCHMARK.json`` holds it. Raises KeyError for a configuration whose
+    ``model_type`` or ``reference`` has no module here."""
     configs = {c["name"]: c for c in bench["configs"]}
     mix = _json(os.path.join(HERE, "traffic", traffic + ".json"))
     if mix.get("workers", 1) != chips:
@@ -56,10 +62,12 @@ def assemble(bench, name, config, traffic, chips, root=ROOT):
     per_layer = _for_cell(bench["per_layer"], name)
     for m in per_layer:
         reader_path(m["name"])  # raises if the reader is missing
+    model = _json(os.path.join(root, configs[config]["file"]))
+    archs.of(model)  # a KeyError for a model_type or a reference the harness lacks
+    archs.reference(model)
     limits_file = os.path.join(HERE, "limits", name + ".json")
     return {
-        "name": name, "chips": chips, "config": config,
-        "model": _json(os.path.join(root, configs[config]["file"])), "traffic": mix,
+        "name": name, "chips": chips, "config": config, "model": model, "traffic": mix,
         "end_to_end": _for_cell(bench["end_to_end"], name), "per_layer": per_layer,
         "limits": _json(limits_file) if os.path.exists(limits_file) else None,
         "run_seconds": bench["run_seconds"],

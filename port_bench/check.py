@@ -1,15 +1,15 @@
 """The comparison that decides ``correct``.
 
 The program's first ``checked_steps`` steps on the window's own path are
-held against the reference (``reference/gpt2.py``, float32) on the same
-weights and batches, by three numbers:
+held against the reference (``reference/<reference>.py``, float32) on the
+same weights and batches, by three numbers:
 
 - ``loss_gap``: the largest gap, in nats, between the program's and the
   reference's loss at any of the steps;
-- ``grad_gap``: over the units (``weights.units``), the largest gap between
-  the norms of the program's and the reference's first gradient as the
-  optimizer takes it (after clipping), over the larger of the reference's
-  norm of that unit and of the median unit;
+- ``grad_gap``: over the units (the architecture's ``units``), the largest
+  gap between the norms of the program's and the reference's first gradient
+  as the optimizer takes it (after clipping), over the larger of the
+  reference's norm of that unit and of the median unit;
 - ``update_gap``: the same of the parameters' change over the steps, leaving
   out each unit whose reference gradient is under ``ROUND_OFF`` of the
   median unit's: such a unit (the key's bias, under the softmax) has a
@@ -23,7 +23,8 @@ A cell compares the numbers its ``limits/<cell>.json`` names.
 
 On a mesh each rank's readings are compared, and the worst counts. Two
 exact checks of the window join them: every reported loss is finite, and on
-a card each attention kernel launched ``n_layer`` times a step.
+a card each attention kernel launched as many times a step as the
+architecture's ``attention_calls`` count (``archs.attention_launches``).
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ def worst_over_ranks(ranks, reference):
     return out
 
 
-def decide(ranks, limits, n_layer, on_card):
+def decide(ranks, limits, launches_per_step, on_card):
     """(correct, checks, details): each number the cell's limits name,
     beside its limit, then the exact checks. Without limits nothing is
     correct."""
@@ -96,7 +97,7 @@ def decide(ranks, limits, n_layer, on_card):
         for r in ranks:
             steps = r["window"]["steps"]
             for count in r["window"]["launches"].values():
-                off = max(off, abs(count - n_layer * steps))
+                off = max(off, abs(count - launches_per_step * steps))
         checks["launches_off"] = {"value": off, "limit": 0}
     correct = bool(limits) and all(c["value"] <= c["limit"] for c in checks.values())
     return correct, checks, g

@@ -8,8 +8,8 @@ For each seed, the program's first ``checked_steps`` steps on the window's
 path (``loop.Worker``) against the float32 reference: the sound readings,
 whose largest sets a limit's lower end. For the first ``--control-seeds``,
 the control: the reference itself in the precision below the
-configuration's (``reference/gpt2.py``, ``precision="fp8"``) against the
-float32 reference. For the first ``--fault-seeds``, each fault of
+configuration's (``reference/<reference>.py``, ``precision="fp8"``) against
+the float32 reference. For the first ``--fault-seeds``, each fault of
 ``faults.py`` that the cell can have, planted in the program. Every reading
 is a JSON line on standard output (and in ``--out``). No benchmark run runs
 this: a cell's runs compare against ``limits/<cell>.json``.
@@ -64,7 +64,7 @@ def run_plan(cell, steps, device, mesh=None, rank=0, world=1):
             ranks = ([{"program": reference_readings(cell, seed, device, "fp8")}] if rank == 0
                      else [])
         else:
-            undo = faults.plant(fault) if fault else None
+            undo = faults.plant(fault, cell["model"]) if fault else None
             try:
                 w = Worker(cell, seed, device, mesh, rank, world)
                 w.build()

@@ -6,7 +6,8 @@ for it): the control (``control.py``) and the tests do.
 - ``unchanged``: the step returns its state unchanged (the optimizer's
   update does nothing but return the gradient's norm).
 - ``half_batch``: the loss is taken over the first half of the batch's rows,
-  its mean over those alone.
+  its mean over those alone (in the function the architecture's
+  ``HALF_BATCH`` names).
 - ``no_exchange``: on a mesh, each rank's gradient keeps its own part and
   skips the all-reduce between the ranks.
 
@@ -18,8 +19,13 @@ from __future__ import annotations
 FAULTS = ("unchanged", "half_batch", "no_exchange")
 
 
-def plant(name):
-    from ray_tpu_torch.models import gpt, training
+def plant(name, model):
+    """Plant fault ``name`` in the port's step of ``model`` (a configuration
+    file's contents)."""
+    import importlib
+
+    from port_bench import archs
+    from ray_tpu_torch.models import training
 
     if name == "unchanged":
         owner, attr = training.AdamW, "update_"
@@ -27,8 +33,9 @@ def plant(name):
         def broken(self, params, grads, opt_state):
             return training.global_norm(grads)
     elif name == "half_batch":
-        owner, attr = gpt, "loss_fn"
-        loss_fn = gpt.loss_fn
+        module, attr = archs.of(model).HALF_BATCH
+        owner = importlib.import_module(module)
+        loss_fn = getattr(owner, attr)
 
         def broken(params, batch, *args, **kw):
             return loss_fn(params, {k: _first_half(v) for k, v in batch.items()}, *args, **kw)

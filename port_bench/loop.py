@@ -11,9 +11,14 @@ Then the window: a fresh host batch a step from the traffic generator,
 pinned and copied in the step as a data loader would, a CUDA event at every
 step boundary, ``session.report`` every ``report_every`` steps (the one host
 sync), and a synchronize at the first step boundary after ``seconds``. A
-traced run then trains ``trace_steps`` more steps under ``torch.profiler``.
-Last, with the program's state freed, the reference follows the first steps
-on rank 0, and rank 0 reports every rank's readings.
+traced run then trains ``trace_steps`` more steps under ``torch.profiler``
+with the device's activity alone, counting the MoE's routes over them, and
+``host_trace_steps`` with the host's ops too, whose device time it splits by
+the program's regions. Last, with the program's state freed, the reference
+(``reference/<reference>.py``) follows the first steps on rank 0, and rank 0
+reports every rank's readings. The configuration's architecture
+(``archs/<model_type>.py``) gives the port's config, the weights and the
+units the check compares.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import importlib
 import os
 import time
 
+from port_bench import archs
+
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "ray_tpu")
 
 
@@ -33,24 +40,6 @@ def forbidden_modules():
     import sys
 
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN_MODULES))
-
-
-def port_config(model):
-    """The port's ``GPTConfig`` for a configuration file's sizes."""
-    import torch
-
-    from ray_tpu_torch.models import GPTConfig
-
-    assumed = model["assumed"]
-    return GPTConfig(
-        vocab_size=model["vocab_size"], n_layer=model["n_layer"], n_head=model["n_head"],
-        d_model=model["n_embd"], d_ff=model.get("n_inner") or 0,
-        max_seq_len=model["n_positions"], dtype=getattr(torch, assumed["compute_dtype"]),
-        param_dtype=getattr(torch, assumed["param_dtype"]), remat=True,
-        remat_policy=assumed["remat_policy"], attention="auto", dropout=model["resid_pdrop"],
-        moe_experts=model.get("num_experts") or 0,
-        moe_capacity_factor=model.get("expert_capacity_factor", 1.25),
-        moe_aux_weight=model.get("router_aux_loss_coef", 0.01))
 
 
 def optimizer_settings(model):
@@ -70,6 +59,7 @@ class Worker:
         self.cell, self.seed, self.device, self.mesh = cell, int(seed), device, mesh
         self.rank, self.world = rank, world
         self.model, self.traffic = cell["model"], cell["traffic"]
+        self.arch = archs.of(self.model)
         self.rows = self.traffic["rows_per_gpu"]
         self.tokens_per_step = self.rows * world * self.traffic["seq"]
         self.gen = traffic_generator(self.traffic, self.model, self.seed)
@@ -77,16 +67,16 @@ class Worker:
 
     def build(self):
         """Weights from the seed, the port's state and step."""
-        from port_bench.weights import init_params, leaves
+        from port_bench.weights import leaves
         from ray_tpu_torch.models import default_optimizer, make_train_step
         from ray_tpu_torch.models.training import TrainState, param_shardings
 
-        self.cfg = port_config(self.model)
+        self.cfg = self.arch.port_config(self.model)
         o = optimizer_settings(self.model)
         self.opt = default_optimizer(learning_rate=o["learning_rate"],
                                      weight_decay=o["weight_decay"], b1=o["b1"], b2=o["b2"],
                                      grad_clip=o["grad_clip"])
-        params = init_params(self.model, self.seed, self.device)
+        params = self.arch.init_params(self.model, self.seed, self.device)
         if self.mesh is not None:
             from ray_tpu_torch.parallel.mesh import distribute
 
@@ -136,17 +126,18 @@ class Worker:
         it (its first moment over 1 - b1), and each unit's norm of the
         parameters' change over the steps (against the weights made anew
         from the seed, so no copy is held)."""
-        from port_bench.weights import delta_norms, init_params, unit_norms
+        from port_bench.weights import delta_norms, unit_norms
 
+        units = self.arch.units
         losses, grads = [], None
         for i in range(self.traffic["checked_steps"]):
             losses.append(self.step(i)["loss"])
             if i == 0:
-                grads = unit_norms(self.state.opt_state["mu"], 1 / (1 - self.opt.b1))
+                grads = unit_norms(units(self.state.opt_state["mu"]), 1 / (1 - self.opt.b1))
                 if on_first_step is not None:
                     on_first_step()
-        start = init_params(self.model, self.seed, self.device)
-        delta = delta_norms(self.state.params, start)
+        start = self.arch.init_params(self.model, self.seed, self.device)
+        delta = delta_norms(units(self.state.params), units(start))
         del start
         return {"losses": [float(x) for x in losses], "grad_units": grads, "delta_units": delta}
 
@@ -268,8 +259,14 @@ def run_window(w, seconds, report, first_step, trace_steps=0):
     if trace_steps:
         from torch.profiler import ProfilerActivity, profile, record_function
 
+        from port_bench import regions
         from port_bench import trace as tracing
+        from ray_tpu_torch.models.moe import reset_route_counts, route_counts
 
+        # The MoE's route counter launches its kernel only from a process's
+        # first reset on: it counts the traced steps, and the timed window
+        # above ran without it. On a card it counts the steps that trace the
+        # device alone; on the CPU, the host-traced ones.
         if cuda:
             # The profiler's first use in a process sets it up: trace two
             # steps first and drop them.
@@ -281,14 +278,19 @@ def run_window(w, seconds, report, first_step, trace_steps=0):
             begin, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 sync(w.device)
+                reset_route_counts()
                 begin.record()
                 i, done, _, out["trace_losses"] = train(
                     i, trace_steps, None, lambda name: contextlib.nullcontext(), None)
                 end.record()
                 sync(w.device)
             trace = tracing.collect(prof, done, window_us=begin.elapsed_time(end) * 1e3)
+            trace["moe_routes"] = route_counts()
+        else:
+            reset_route_counts()
         # What the host does while the card waits: a few steps with the
-        # host's ops traced too, each gap named by the op running.
+        # host's ops traced too, each gap named by the op running, and each
+        # device activity by the program's region that launched it.
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         with profile(activities=acts) as prof:
             with record_function(tracing.WINDOW):
@@ -296,11 +298,12 @@ def run_window(w, seconds, report, first_step, trace_steps=0):
                                       None)
                 sync(w.device)
         host = tracing.collect(prof, done)
-        if trace is None:
-            trace = host
-        else:
+        if cuda:
             trace.update(idle_us_by_host_op=host["idle_us_by_host_op"], ranges=host["ranges"],
                          host_steps=done, host_window_us=host["window_us"])
+        else:
+            trace = dict(host, moe_routes=route_counts())
+        trace["regions"] = regions.collect(prof, done)
     return out, trace
 
 
@@ -308,27 +311,28 @@ def reference_readings(cell, seed, device, precision="f32"):
     """The reference's readings of the first ``checked_steps`` steps on the
     whole global batch: each loss, each unit's norm of the first clipped
     gradient, and each unit's norm of the parameters' change."""
-    from port_bench.reference import gpt2
-    from port_bench.weights import delta_norms, init_params, unit_norms
-
     import torch
 
+    from port_bench.weights import delta_norms, unit_norms
+
     model, traffic = cell["model"], cell["traffic"]
+    arch = archs.of(model)
     gen = traffic_generator(traffic, model, seed)
     rows = traffic["rows_per_gpu"] * traffic["workers"]
-    params = init_params(model, seed, device)
+    params = arch.init_params(model, seed, device)
     batches = [torch.from_numpy(gen.rows(i, 0, rows)).to(device)
                for i in range(traffic["checked_steps"])]
     seen = {}
 
     def on_step(i, clipped):
         if i == 0:
-            seen["grad_units"] = unit_norms(clipped)
+            seen["grad_units"] = unit_norms(arch.units(clipped))
 
-    losses = gpt2.train(params, batches, model, optimizer_settings(model), precision,
-                        on_step=on_step)
-    seen["losses"] = losses
-    seen["delta_units"] = delta_norms(params, init_params(model, seed, device))
+    seen["losses"] = archs.reference(model).train(params, batches, model,
+                                                  optimizer_settings(model), precision,
+                                                  on_step=on_step)
+    seen["delta_units"] = delta_norms(arch.units(params),
+                                      arch.units(arch.init_params(model, seed, device)))
     return seen
 
 
@@ -343,7 +347,7 @@ def train_loop(config):
     if config.get("fault"):
         from port_bench import faults
 
-        faults.plant(config["fault"])
+        faults.plant(config["fault"], cell["model"])
     rank, world = session.get_world_rank(), session.get_world_size()
     if config["device"] == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())

@@ -1,9 +1,10 @@
-"""Kernels: the causal backward's least time at the call's shape
-(``flops.attention_bounds``) over the mean device ms of one backward call,
-``flash_bwd_wgmma_kernel`` and its ``flash_bwd_dq_convert_kernel``
-together, in %, mean over ranks."""
+"""Kernels: the least time of one step's causal backward calls
+(``flops.attention_step_ms``: each shape the architecture's
+``attention_calls`` gives, at ``flops.attention_bounds``) over the device
+ms a step in ``flash_bwd_wgmma_kernel`` and its
+``flash_bwd_dq_convert_kernel`` together, in %, mean over ranks."""
 
-from port_bench.flops import attention_bounds
+from port_bench.flops import attention_step_ms
 from port_bench.trace import mean, traces
 
 
@@ -12,12 +13,6 @@ def _bwd(name):
 
 
 def read(run):
-    m = run.model
-    bh = run.traffic["rows_per_gpu"] * m["n_head"]
-    least = attention_bounds(bh, run.traffic["seq"], m["n_embd"] // m["n_head"])["bwd"]["ms"]
-    shares = []
-    for t in traces(run.ranks):
-        calls = t.count(lambda n: "flash_bwd_wgmma" in n)
-        if calls:
-            shares.append(100 * least / (t.ms_per_step(_bwd) * t.steps / calls))
-    return mean(shares)
+    least = attention_step_ms(run.model, run.traffic)["bwd"]
+    return mean(100 * least / t.ms_per_step(_bwd) for t in traces(run.ranks)
+                if t.count(lambda n: "flash_bwd_wgmma" in n))

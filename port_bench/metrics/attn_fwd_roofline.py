@@ -1,19 +1,16 @@
-"""Kernels: the causal forward's least time at the call's shape
-(``flops.attention_bounds``) over the mean device ms of one
-``flash_fwd_wgmma_kernel`` call, in %, mean over ranks."""
+"""Kernels: the least time of one step's causal forward calls
+(``flops.attention_step_ms``: each shape the architecture's
+``attention_calls`` gives, at ``flops.attention_bounds``) over the device
+ms a step in ``flash_fwd_wgmma_kernel``, in %, mean over ranks."""
 
-from port_bench.flops import attention_bounds
+from port_bench.flops import attention_step_ms
 from port_bench.trace import mean, traces
 
 
+def _fwd(name):
+    return "flash_fwd_wgmma" in name
+
+
 def read(run):
-    m = run.model
-    bh = run.traffic["rows_per_gpu"] * m["n_head"]
-    least = attention_bounds(bh, run.traffic["seq"], m["n_embd"] // m["n_head"])["fwd"]["ms"]
-    shares = []
-    for t in traces(run.ranks):
-        calls = t.count(lambda n: "flash_fwd_wgmma" in n)
-        if calls:
-            shares.append(100 * least / (t.ms_per_step(lambda n: "flash_fwd_wgmma" in n)
-                                         * t.steps / calls))
-    return mean(shares)
+    least = attention_step_ms(run.model, run.traffic)["fwd"]
+    return mean(100 * least / t.ms_per_step(_fwd) for t in traces(run.ranks) if t.count(_fwd))

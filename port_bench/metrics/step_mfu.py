@@ -1,6 +1,7 @@
-"""Train step: the model FLOPs of the window's tokens (``port_bench/flops.py``:
-active parameters, causal attention) over the window's seconds times the
-bf16 peak of every GPU used, in %."""
+"""Train step: the model FLOPs of the window's tokens (``port_bench/flops.py``
+through the configuration's architecture: active parameters, causal
+attention) over the window's seconds times the bf16 peak of every GPU used,
+in %."""
 
 from port_bench.flops import PEAK_BF16_FLOPS, train_flops_per_token
 

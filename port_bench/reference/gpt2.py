@@ -8,7 +8,8 @@ capacity of ceil(tokens a group * capacity factor / experts) with tokens over
 it passed on by the residual alone, the gate scaling the expert's output, and
 the load-balancing loss E * sum_e f_e * P_e) and from nothing of the program:
 it imports neither ``ray_tpu_torch`` nor ``ray_tpu`` nor ``jax``. It reads the
-parameters by the port's leaf names, which ``port_bench/weights.py`` makes.
+parameters by the port's leaf names, which ``port_bench/archs/gpt2.py``
+makes.
 
 Every product is a float32 ``torch.matmul`` with TF32 off, unless
 ``precision="fp8"``: then each operand of every product but the router's

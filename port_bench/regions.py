@@ -24,11 +24,10 @@ tuples. A program that opens no range gives ``None``, and so does a window
 with no device activity.
 
 The readers of ``metrics/`` that use ``ms`` read ``trace["regions"]`` (the
-rows) of a rank's payload, and ``moe_dropped_pct`` reads its
-``window["moe_routes"]`` (the port's ``models.moe.route_counts()``).
-``loop.py`` writes neither yet, and ``BENCHMARK.json`` lists none of those
-metrics: wiring them takes the lines that PERF.md's open questions give, in
-``loop.run_window``.
+rows) of a rank's payload, which ``loop.run_window`` collects from its
+host-traced steps; ``moe_dropped_pct`` reads ``trace["moe_routes"]`` (the
+port's ``models.moe.route_counts()`` over the steps that trace the device
+alone).
 """
 
 from __future__ import annotations

@@ -188,7 +188,7 @@ def run_cell(cell, seed, seconds, trace, device="cuda", process_start=None, faul
     """One run of ``cell`` (from ``cells.resolve``): the result's line as a
     dict. ``device="cpu"`` drives the same path on the CPU (the tests, at a
     small size)."""
-    from port_bench import check
+    from port_bench import archs, check
     from port_bench.loop import forbidden_modules
 
     process_start = process_start if process_start is not None else time.time()
@@ -199,8 +199,8 @@ def run_cell(cell, seed, seconds, trace, device="cuda", process_start=None, faul
     run = Run(cell, ranks, fit_start)
     e2e, peak_bytes = end_to_end(run, process_start)
     on_card = device == "cuda"
-    correct, checks, detail = check.decide(ranks, cell["limits"], cell["model"]["n_layer"],
-                                           on_card)
+    launches = archs.attention_launches(cell["model"], cell["traffic"])
+    correct, checks, detail = check.decide(ranks, cell["limits"], launches, on_card)
     window = ranks[0]["window"]
     every = cell["traffic"]["report_every"]
     failed = every * sum(not math.isfinite(x) for x in window["losses"])

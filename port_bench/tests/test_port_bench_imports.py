@@ -28,6 +28,7 @@ def test_the_harness_loads_no_jax():
 
     mods = ["port_bench.run", "port_bench.loop", "port_bench.control", "port_bench.check",
             "port_bench.trace", "port_bench.faults", "port_bench.reference.gpt2",
+            "port_bench.archs.gpt2", "port_bench.regions",
             "port_bench.traffic.zipf_lm", "ray_tpu_torch", "ray_tpu_torch.train.torch",
             "ray_tpu_torch.models"]
     top = loaded(mods)

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from conftest import nano
-from port_bench import check, weights
+from port_bench import archs, check, weights
 from port_bench.loop import Worker, reference_readings
 from port_bench.reference import gpt2
 
@@ -43,7 +43,7 @@ def test_fp8_products_round_operands():
 
 def test_row_blocks_do_not_change_the_moe_loss_or_gradient():
     c = nano("gpt2_small_moe8.pretrain")
-    params = weights.init_params(c["model"], 9, "cpu")
+    params = archs.of(c["model"]).init_params(c["model"], 9, "cpu")
     tokens = torch.randint(0, 250, (4, 33))
     whole, g_whole = gpt2.loss_and_grads(params, tokens, c["model"], rows_per_block=4)
     parts, g_parts = gpt2.loss_and_grads(params, tokens, c["model"], rows_per_block=1)

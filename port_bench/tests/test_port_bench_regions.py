@@ -90,8 +90,8 @@ def test_split_finds_nothing_without_ranges_or_device_work():
 
 
 def _run(cell_name, rows, routes=None):
-    rank = {"trace": {"regions": rows},
-            "window": {"peak_bytes": 1, "seconds": 1.0, "tokens": 1, "moe_routes": routes}}
+    rank = {"trace": {"regions": rows, "moe_routes": routes},
+            "window": {"peak_bytes": 1, "seconds": 1.0, "tokens": 1}}
     return Run(resolve(cell_name), [rank], fit_start=0.0)
 
 
@@ -135,8 +135,8 @@ def test_readers_with_nothing_to_read_return_nothing():
     cell = resolve("gpt2_small_moe8.pretrain")
     untraced = Run(cell, [{"trace": None, "window": {"peak_bytes": None}}], fit_start=0.0)
     # A program with no ranges, whose trace has no regions (None), and no counter.
-    silent = Run(cell, [{"trace": {"busy_us": 1.0, "regions": None},
-                         "window": {"peak_bytes": 1, "moe_routes": None}}], fit_start=0.0)
+    silent = Run(cell, [{"trace": {"busy_us": 1.0, "regions": None, "moe_routes": None},
+                         "window": {"peak_bytes": 1}}], fit_start=0.0)
     for run in (untraced, silent):
         for name in NEW:
             assert reader(name)(run) is None, name

@@ -25,6 +25,8 @@ def test_union_and_overlap():
 
 def test_readers_on_a_made_up_rank():
     cell = cell_named("gpt2_small.pretrain_dp4")
+    # One layer, so the made-up rank's one call each way is a whole step.
+    cell["model"]["n_layer"] = 1
     fwd = cell["model"]["n_head"] * 16
     device = [("flash_fwd_wgmma_kernel<64>", 0, 100), ("ampere_sgemm_128x64_nn", 100, 300),
               ("ncclDevKernel_AllReduce_Sum_f32_RING_LL", 250, 450),
